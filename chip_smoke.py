@@ -9,7 +9,10 @@ Run from the root of the repository, on a machine with a Hopper card
 Phases, one output line each (time, kernel launches, result):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the bitonic sweep kernel, from csrc/ into the ignored _build/;
+2. build: the four kernels (bitonic sweep, digit histogram, gather floor,
+   partition scatter), one nvcc each, all started together, from csrc/ into
+   the ignored _build/, with each one's nvcc time and ptxas registers and
+   spills;
 3. kernel vs plain: sweeps of 1, 3 and 5 words (local, cross, forced
    ascending) on 2**20 random words, and the cross sweeps over the top
    index bits of the 2**28 one-word and 2**24 three-word networks, through
@@ -23,7 +26,23 @@ Phases, one output line each (time, kernel launches, result):
    warm-up) beside torch.sort(stable=True) as the yardstick, and the first
    sweep of its network through the kernel beside its plain version, each
    run on a fresh copy of the random keys and required bit-equal;
-6. breakdown: the device time of each of that network's sweeps.
+6. breakdown: the device time of each of that network's sweeps;
+7. histogram kernel vs plain: ``digit_histogram`` through the kernel and
+   through ``digit_histogram_reference`` (u32 at 2**20 and 2**28, shifts
+   0/8/16/24, tiles 8192 and 2048, widths 1, 2, 5 and 12, an odd tile, an n
+   that is no tile multiple, u64 with shift 40), required bit-equal;
+8. portable path: the public entry points with method="counting" (u32 at
+   160,000,000, pairs, f32 and f16/bf16 specials, u64 pairs, a window,
+   descending f64, 2-D rows 4096x4096), "argsort" and "lsd_argsort"
+   (pairs), and segment_ids= from segment_ids_from_offsets, each bit-exact
+   against the numpy oracle, each counting case required to launch the
+   histogram kernel;
+9. probes: the gather-floor and partition-scatter probes through their
+   tool entry points, each kernel required equal to its plain version;
+10. timing of the new kernels and engine: the histogram at 2**28 beside its
+   plain version, torch.bincount and its bound; counting sort_keys u32 at
+   2**28 beside torch.sort and the bitonic sort_keys, with its per-stage
+   breakdown.
 
 The line before the last is the kernel report, {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero
@@ -34,51 +53,47 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# the run uses one card: the first, unless the caller chose one
+os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import tinyhipradixsort_torch as thrs  # noqa: E402
+from tinyhipradixsort_torch import keybits  # noqa: E402
 from tinyhipradixsort_torch.ops import bitonic_engine as be  # noqa: E402
+from tinyhipradixsort_torch.ops import counting_engine  # noqa: E402
 from tinyhipradixsort_torch.ops import cuda_lib  # noqa: E402
+from tinyhipradixsort_torch.ops import histogram as hist  # noqa: E402
+from tinyhipradixsort_torch.tools import H100_BYTES_PER_S  # noqa: E402
+from tinyhipradixsort_torch.tools import card as card_line  # noqa: E402
+from tinyhipradixsort_torch.tools import cuda_ms  # noqa: E402
+from tinyhipradixsort_torch.tools import gather_floor as gf  # noqa: E402
+from tinyhipradixsort_torch.tools import partition_dma_floor as pdf  # noqa: E402
 
-REPLACES = "tinyhipradixsort_tpu/ops/bitonic_engine.py:267"
-SOURCE = "tinyhipradixsort_torch/csrc/bitonic_sweep.cu"
 SEED = 20260
+#: kernel (its source is csrc/<name>.cu) -> the TPU kernel it replaces
+KERNELS = {
+    "bitonic_sweep": "tinyhipradixsort_tpu/ops/bitonic_engine.py:267",
+    "digit_histogram": "tinyhipradixsort_tpu/ops/histogram.py:38",
+    "gather_floor": "tools/gather_floor.py:43",
+    "partition_scatter": "tools/partition_dma_floor.py:43",
+}
+# 32-bit operations outside the tensor cores: the H100 SXM's published
+# float32 rate, 67 TFLOP/s, the nearest published rate
+SCALAR_OPS_PER_S = 67e12
 
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip()
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Median device time of ``fn()`` over ``reps`` runs, after a warm-up."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 # ---------------------------------------------------------------------------
@@ -208,29 +223,35 @@ def _rand_keys(rng, dtype, n: int, specials: bool = False) -> np.ndarray:
                         endpoint=True)
 
 
+_UNSIGNED = {2: np.uint16, 4: np.uint32, 8: np.uint64}
+
+
 def _bits_view(a: np.ndarray) -> np.ndarray:
-    return a.view(np.uint64 if a.dtype.itemsize == 8 else np.uint32)
+    return a.view(_UNSIGNED[a.dtype.itemsize])
 
 
-def oracle_bits(keys: np.ndarray, descending: bool) -> np.ndarray:
+def oracle_bits(keys: np.ndarray, descending: bool, kind=None) -> np.ndarray:
     """The radix sort's total order as unsigned numpy bits, written out here
     so that the oracle does not rest on the port: signed ints flip the sign
     bit; floats flip every bit of negatives and the sign bit of the rest,
     after -0.0 is made +0.0 (so the two zeros tie and keep input order);
-    descending complements."""
+    descending complements. ``kind`` overrides the dtype's kind (bfloat16
+    keys come as their raw uint16 patterns with kind "f")."""
     width = keys.dtype.itemsize * 8
-    u = keys.view(np.uint64 if width == 64 else np.uint32)
+    kind = kind or keys.dtype.kind
+    u = keys.view(_UNSIGNED[keys.dtype.itemsize])
     top = u.dtype.type(1 << (width - 1))
-    if keys.dtype.kind == "i":
+    if kind == "i":
         u = u ^ top
-    elif keys.dtype.kind == "f":
+    elif kind == "f":
         u = np.where(u == top, u.dtype.type(0), u)
         u = np.where((u & top) != 0, ~u, u | top)
     return ~u if descending else u
 
 
-def _perm(keys: np.ndarray, descending=False, start_bit=0, end_bit=None):
-    bits = oracle_bits(keys, descending)
+def _perm(keys: np.ndarray, descending=False, start_bit=0, end_bit=None,
+          kind=None):
+    bits = oracle_bits(keys, descending, kind)
     if end_bit is not None:
         bits = (bits >> bits.dtype.type(start_bit)) & bits.dtype.type(
             (1 << (end_bit - start_bit)) - 1)
@@ -435,6 +456,348 @@ def phase_breakdown(x: torch.Tensor, sort_ms: float, card: str) -> None:
         f"median of 3, CUDA events; card: {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 2: build every kernel, one nvcc each, all started together
+# ---------------------------------------------------------------------------
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    cuda_lib.build(list(KERNELS))
+    wall = time.perf_counter() - t0
+    for lib in KERNELS:
+        cuda_lib.load(lib)
+        info = cuda_lib.BUILD_INFO[lib]
+        ptxas = [ln.strip() for ln in info["log"].splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log("2 build", f"{lib}: nvcc {info['seconds']:.3f} s -> "
+            f"{info['path']}; " + " | ".join(ptxas))
+    log("2 build", f"{len(KERNELS)} libraries in {wall:.3f} s (parallel)")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the histogram kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _random_bits(n: int, wide: bool, gen: torch.Generator) -> torch.Tensor:
+    """n random u32 (int32) or u64 (int64) bit patterns on the card."""
+    if wide:
+        hi = torch.randint(-2**31, 2**31, (n,), generator=gen, device="cuda",
+                           dtype=torch.int64)
+        lo = torch.randint(0, 2**32, (n,), generator=gen, device="cuda",
+                           dtype=torch.int64)
+        return (hi << 32) | lo
+    return torch.randint(-2**31, 2**31, (n,), generator=gen, device="cuda",
+                         dtype=torch.int64).to(torch.int32)
+
+
+def histogram_cases():
+    """(n, wide, shift, width, tile)."""
+    cases = [(n, False, shift, 8, tile)
+             for n in (1 << 20, 1 << 28) for tile in (8192, 2048)
+             for shift in (0, 8, 16, 24)]
+    cases += [(1 << 20, False, 31, 1, 8192), (1 << 20, False, 30, 2, 8192),
+              (1 << 20, False, 4, 5, 8192),
+              (1 << 20, False, 3, 8, 3000),          # odd tile: 3072
+              ((1 << 20) + 777, False, 0, 8, 8192),  # no tile multiple
+              (1 << 24, True, 40, 8, 8192),          # u64, shift 40
+              (1 << 22, False, 4, 12, 8192)]         # bins in device memory
+    return cases
+
+
+def phase_histogram() -> int:
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    worst = 0
+    cache = {}
+    for n, wide, shift, width, tile in histogram_cases():
+        if (n, wide) not in cache:
+            cache.clear()
+            torch.cuda.empty_cache()
+            cache[(n, wide)] = _random_bits(n, wide, gen)
+        bits = cache[(n, wide)]
+        got = hist.digit_histogram(bits, shift, width, tile)
+        want = hist.digit_histogram_reference(bits, shift, width, tile)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        ok = torch.equal(got, want)
+        log("7 histogram-vs-plain",
+            f"{'u64' if wide else 'u32'} n={n} shift={shift} width={width} "
+            f"tile={tile}->{hist.round_tile(tile)}: counts "
+            f"{tuple(got.shape)} max_abs_err={err} "
+            f"{'bit-equal' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"histogram kernel != plain version (n={n} "
+                                 f"shift={shift} width={width} tile={tile})")
+        worst = max(worst, err)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the portable engines through the public API
+# ---------------------------------------------------------------------------
+
+
+def _raw16(rng, n: int) -> np.ndarray:
+    """Raw 16-bit float patterns: uniform (NaNs with every payload, both
+    signs, denormals, infinities), with 1% +0.0 and 1% -0.0."""
+    u = rng.integers(0, 2**16, size=n, dtype=np.uint16)
+    u[rng.random(n) < 0.01] = 0
+    u[rng.random(n) < 0.01] = 0x8000
+    return u
+
+
+def portable_cases():
+    """(label, method, run); run(rng) -> (device seconds, check)."""
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    def keys_only(dtype, n, method, specials=False, **kw):
+        def run(rng):
+            x = _rand_keys(rng, dtype, n, specials)
+            xd = torch.from_numpy(x).cuda()
+            secs, out = timed(lambda: thrs.sort_keys(xd, method=method, **kw))
+            got = out.cpu().numpy()
+            del xd, out
+
+            def check():
+                want = (np.sort(x) if x.dtype.kind in "ui" and not kw
+                        else x[_perm(x, kw.get("order") == "descending")])
+                return np.array_equal(_bits_view(got), _bits_view(want))
+            return secs, check
+        return run
+
+    def pairs(kdtype, n, method, specials=False, order="ascending", **kw):
+        def run(rng):
+            x = _rand_keys(rng, kdtype, n, specials)
+            wide = np.dtype(kdtype).itemsize == 8 and kdtype != np.float64
+            v = rng.integers(0, 2**64 if wide else 2**32, size=n,
+                             dtype=np.uint64 if wide else np.uint32)
+            xd, vd = torch.from_numpy(x).cuda(), torch.from_numpy(v).cuda()
+            secs, (k, vals) = timed(lambda: thrs.sort_pairs(
+                xd, vd, order=order, method=method, **kw))
+            gk, gv = k.cpu().numpy(), vals.cpu().numpy()
+            del xd, vd, k, vals
+
+            def check():
+                p = _perm(x, order == "descending", kw.get("start_bit", 0),
+                          kw.get("end_bit"))
+                return (np.array_equal(_bits_view(gk), _bits_view(x[p]))
+                        and np.array_equal(gv, v[p]))
+            return secs, check
+        return run
+
+    def keys16(tdtype, n, method):
+        def run(rng):
+            u = _raw16(rng, n)
+            xd = torch.from_numpy(u.view(np.int16)).cuda().view(tdtype)
+            secs, out = timed(lambda: thrs.sort_keys(xd, method=method))
+            got = out.view(torch.int16).cpu().numpy().view(np.uint16)
+            del xd, out
+            return secs, lambda: np.array_equal(got, u[_perm(u, kind="f")])
+        return run
+
+    def rows(B, n, method):
+        def run(rng):
+            x = rng.integers(0, 2**32, size=(B, n), dtype=np.uint32)
+            xd = torch.from_numpy(x).cuda()
+            secs, out = timed(lambda: thrs.sort_keys(xd, method=method))
+            got = out.cpu().numpy()
+            del xd, out
+            return secs, lambda: np.array_equal(got, np.sort(x, axis=1))
+        return run
+
+    def segments(n, nseg, method):
+        def run(rng):
+            x = rng.integers(0, 2**32, size=n, dtype=np.uint32)
+            offs = np.sort(rng.integers(0, n, size=nseg)).astype(np.int32)
+            xd = torch.from_numpy(x).cuda()
+            seg = thrs.segment_ids_from_offsets(torch.from_numpy(offs).cuda(),
+                                                n)
+            secs, (k, perm) = timed(lambda: (
+                thrs.sort_keys(xd, segment_ids=seg, method=method),
+                thrs.sort_indices(xd, segment_ids=seg, method=method)))
+            gk, gp, sid = k.cpu().numpy(), perm.cpu().numpy(), seg.cpu().numpy()
+            del xd, seg, k, perm
+
+            def check():
+                want = np.searchsorted(offs, np.arange(n), side="right") - \
+                    np.searchsorted(offs, 0, side="right")
+                p = np.lexsort((x, want))
+                return (np.array_equal(sid, want) and np.array_equal(gp, p)
+                        and np.array_equal(gk, x[p]))
+            return secs, check
+        return run
+
+    c = "counting"
+    return [
+        ("sort_keys u32 n=160,000,000 (reference main.cpp:105)", c,
+         keys_only(np.uint32, 160_000_000, c)),
+        ("sort_pairs u32+u32 n=2**24", c, pairs(np.uint32, 1 << 24, c)),
+        ("sort_keys f32 NaN/-0.0/negatives n=2**22", c,
+         keys_only(np.float32, 1 << 22, c, specials=True)),
+        ("sort_pairs u64+u64 n=2**22", c, pairs(np.uint64, 1 << 22, c)),
+        ("sort_pairs u32+u32 window [8,16) n=2**22", c,
+         pairs(np.uint32, 1 << 22, c, start_bit=8, end_bit=16)),
+        ("sort_pairs f64+u32 descending NaN/-0.0 n=2**22", c,
+         pairs(np.float64, 1 << 22, c, specials=True, order="descending")),
+        ("sort_keys f16 NaN payloads/-0.0 n=2**22", c,
+         keys16(torch.float16, 1 << 22, c)),
+        ("sort_keys bf16 NaN payloads/-0.0 n=2**22", c,
+         keys16(torch.bfloat16, 1 << 22, c)),
+        ("sort_keys u32 2-D rows 4096x4096", c, rows(4096, 4096, c)),
+        ("sort_pairs u32+u32 n=2**24", "argsort",
+         pairs(np.uint32, 1 << 24, "argsort")),
+        ("sort_pairs u32+u32 n=2**24", "lsd_argsort",
+         pairs(np.uint32, 1 << 24, "lsd_argsort")),
+        ("sort_keys+sort_indices u32 segment_ids_from_offsets (1000 "
+         "segments) n=2**24", "argsort", segments(1 << 24, 1000, "argsort")),
+    ]
+
+
+def phase_portable() -> int:
+    rng = np.random.default_rng(SEED + 8)
+    hist.KERNEL_LAUNCHES = 0
+    for label, method, run in portable_cases():
+        before = hist.KERNEL_LAUNCHES
+        secs, check = run(rng)
+        launches = hist.KERNEL_LAUNCHES - before
+        ok = check()
+        log("8 portable-path", f"method={method} {label}: {secs * 1e3:.3f} ms "
+            f"(host clock, synchronized) histogram launches={launches} "
+            f"{'bit-exact' if ok else 'MISMATCH'} vs numpy oracle")
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"portable path output wrong: {method} {label}")
+        if method == "counting" and launches == 0:
+            raise AssertionError(f"counting path did not launch the histogram "
+                                 f"kernel: {label}")
+    return hist.KERNEL_LAUNCHES
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the probes through their tool entry points
+# ---------------------------------------------------------------------------
+
+
+def phase_probes(card: str) -> tuple[dict, dict, int, int]:
+    gf.KERNEL_LAUNCHES = 0
+    pdf.KERNEL_LAUNCHES = 0
+    g = gf.measure(4096, 2048, 5)
+    g_rate = gf.measure(4096, 1 << 18, 5)
+    dev = gf.measure_device_gather(1 << 28, 5)
+    s64 = pdf.measure(1024, 8, 64, 5)
+    s1k = pdf.measure(1024, 8, 1024, 5)
+    g_launches, s_launches = gf.KERNEL_LAUNCHES, pdf.KERNEL_LAUNCHES
+    for r in (g, g_rate):
+        log("9 probes", f"gather_floor m={r['m']} rounds={r['rounds']}: "
+            f"kernel {r['ms']:.6f} ms -> {r['ns_per_load']:.6f} ns/load = "
+            f"{r['gloads_per_s']:.4f} Gloads/s; plain version "
+            f"{r['plain_ms']:.6f} ms; checksum {r['checksum']:#010x} equal "
+            f"to the plain version; median of 5, CUDA events; card: {card}")
+    log("9 probes", f"device-memory gather src[perm] of 2**28 u32 (counting "
+        f"stage 3's gather): {dev['ms']:.6f} ms -> {dev['gelems_per_s']:.4f} "
+        f"Gelem/s, {dev['tb_per_s']:.4f} TB/s (bound {dev['bound_ms']:.6f} "
+        f"ms); median of 5, CUDA events; card: {card}")
+    for r in (s64, s1k):
+        log("9 probes", f"partition_scatter r={r['r']} w={r['w']} (unused) "
+            f"t={r['t']} ({r['n']} u32): kernel {r['ms']:.6f} ms -> "
+            f"{r['tb_per_s'] * 1e3:.1f} GB/s read+write "
+            f"({100 * r['bound_ms'] / r['ms']:.1f}% of 3.35 TB/s, bound "
+            f"{r['bound_ms']:.6f} ms); plain version {r['plain_ms']:.6f} ms; "
+            f"index_copy_ {r['library_ms']:.6f} ms; output equal to the "
+            f"plain version; median of 5, CUDA events; card: {card}")
+    log("9 probes", f"launches: gather_floor={g_launches} "
+        f"partition_scatter={s_launches}")
+    if g_launches == 0 or s_launches == 0:
+        raise AssertionError("a probe did not launch its kernel")
+    return g, s1k, g_launches, s_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: timing of the histogram and of the counting sort
+# ---------------------------------------------------------------------------
+
+
+def phase_histogram_timing(x: torch.Tensor, card: str) -> dict:
+    """The histogram at 2**28 u32, width 8, at the counting engine's tile
+    (2048, the main path's shape) and the default tile (8192)."""
+    bits = x.view(torch.int32)
+    n = bits.shape[0]
+    result = None
+    for tile in (counting_engine.DEFAULT_TILE, hist.DEFAULT_TILE):
+        ms = cuda_ms(lambda: hist.digit_histogram(bits, 0, 8, tile), 5)
+        plain_ms = cuda_ms(
+            lambda: hist.digit_histogram_reference(bits, 0, 8, tile), 5)
+        T = -(-n // tile)
+        keyed = ((torch.arange(n, device="cuda", dtype=torch.int64) // tile)
+                 << 8) | (bits.long() & 0xFF)
+        library_ms = cuda_ms(lambda: torch.bincount(keyed, minlength=T * 256),
+                             5)
+        del keyed
+        moved = 4 * n + 4 * T * 256
+        bound_ms = moved / H100_BYTES_PER_S * 1e3
+        log("10 timing", f"digit_histogram u32 n=2**28 width=8 tile={tile}: "
+            f"kernel {ms:.6f} ms ({moved / ms / 1e9:.4f} TB/s), plain "
+            f"version {plain_ms:.6f} ms, torch.bincount of the precomputed "
+            f"(tile << 8) | digit {library_ms:.6f} ms, bound {bound_ms:.6f} "
+            f"ms ({moved} bytes at 3.35 TB/s; kernel at "
+            f"{100 * bound_ms / ms:.1f}% of it); median of 5, CUDA events; "
+            f"card: {card}")
+        if result is None:
+            result = {"ms": ms, "plain_ms": plain_ms, "bytes": moved,
+                      "library_ms": library_ms}
+    return result
+
+
+def phase_counting_timing(x: torch.Tensor, bitonic_ms: float,
+                          card: str) -> None:
+    n = x.shape[0]
+    ms = cuda_ms(lambda: thrs.sort_keys(x, method="counting"), 5)
+    signed = x.view(torch.int32) ^ -2**31
+    yard_ms = cuda_ms(lambda: torch.sort(signed, stable=True), 5)
+    del signed
+    log("10 timing", f"counting sort_keys u32 n=2**28: {ms:.3f} ms "
+        f"({n / ms / 1e6:.4f} Gkeys/s); torch.sort(stable=True) {yard_ms:.3f} "
+        f"ms; bitonic sort_keys (phase 5) {bitonic_ms:.3f} ms; median of 5, "
+        f"CUDA events; card: {card}")
+    # per-stage device time of the same sort: the engine marks each stage
+    bits = keybits.key_bits(x)
+    passes = []
+    for rep in range(4):
+        events = []
+
+        def mark(stage):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((stage, ev))
+
+        mark("start")
+        counting_engine.sort_arrays_counting(bits, [x], 0, 32, mark=mark)
+        torch.cuda.synchronize()
+        if rep:
+            stages = {}
+            for (_, a), (stage, b) in zip(events, events[1:]):
+                stages[stage] = stages.get(stage, 0.0) + a.elapsed_time(b)
+            passes.append(stages)
+    total = 0.0
+    for stage in passes[0]:
+        med = statistics.median(p[stage] for p in passes)
+        total += med
+        log("10 timing", f"counting breakdown {stage}: {med:.3f} ms "
+            f"(4 passes)" if stage != "pad" else
+            f"counting breakdown pad: {med:.3f} ms")
+    log("10 timing", f"counting breakdown sum {total:.3f} ms "
+        f"({100 * total / ms:.1f}% of the sort_keys median); median of 3 "
+        f"after a warm-up, CUDA events between stages; card: {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an "
@@ -447,13 +810,7 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(card, flush=True)
 
-    t0 = time.perf_counter()
-    cuda_lib.load("bitonic_sweep")
-    info = cuda_lib.BUILD_INFO["bitonic_sweep"]
-    ptxas = [ln.strip() for ln in info["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    log("2 build", f"{time.perf_counter() - t0:.3f} s (nvcc "
-        f"{info['seconds']:.3f} s) -> {info['path']}; " + " | ".join(ptxas))
+    phase_build()
 
     t0 = time.perf_counter()
     worst = phase_sweeps()
@@ -472,13 +829,56 @@ def main() -> int:
     kernel_ms, plain_ms, sort_ms, err = phase_timing(x, card)
     worst = max(worst, err)
     phase_breakdown(x, sort_ms, card)
+
+    t0 = time.perf_counter()
+    hist_err = phase_histogram()
+    log("7 histogram-vs-plain", f"all cases bit-equal in "
+        f"{time.perf_counter() - t0:.3f} s, max_abs_err={hist_err}")
+
+    t0 = time.perf_counter()
+    hist_launches = phase_portable()
+    log("8 portable-path", f"all cases bit-exact in "
+        f"{time.perf_counter() - t0:.3f} s, histogram launches="
+        f"{hist_launches}")
+
+    t0 = time.perf_counter()
+    g, s, g_launches, s_launches = phase_probes(card)
+    log("9 probes", f"done in {time.perf_counter() - t0:.3f} s")
+
+    h = phase_histogram_timing(x, card)
+    phase_counting_timing(x, sort_ms, card)
     del x
     log("done", f"{time.perf_counter() - t_all:.3f} s in all")
+
+    def entry(name, launches, err, ms, plain_ms, nbytes, ops, library_ms):
+        """One kernel's report; its bound is the larger of its bytes at the
+        memory rate and its 32-bit operations at the scalar rate."""
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+        return {"name": name, "route": "cuda",
+                "source": f"tinyhipradixsort_torch/csrc/{name}.cu",
+                "replaces": KERNELS[name], "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_bytes, t_ops) * 1e3,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": library_ms}
+
+    # the timed sweep (phase 5): the first local sweep of the 2**28
+    # one-word network reads and writes every word once, and its
+    # compare-exchanges (substages x n/2) take less time at the scalar rate
+    sweep = _plan(28, 1, be.EngineTuning())[0]
     print(card, flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "bitonic_sweep", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": worst,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}), flush=True)
+    print(json.dumps({"kernels": [
+        entry("bitonic_sweep", launches, worst, kernel_ms, plain_ms,
+              2 * 4 * (1 << 28), len(sweep.substages) * (1 << 27), None),
+        # digit extraction: a shift, a mask and an add per word
+        entry("digit_histogram", hist_launches, hist_err, h["ms"],
+              h["plain_ms"], h["bytes"], 3 * (1 << 28), h["library_ms"]),
+        # an index load, an add and a dynamic load per (round, element)
+        entry("gather_floor", g_launches, 0, g["ms"], g["plain_ms"],
+              g["bytes"], 3 * g["loads"], None),
+        entry("partition_scatter", s_launches, 0, s["ms"], s["plain_ms"],
+              s["bytes"], 0, s["library_ms"]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

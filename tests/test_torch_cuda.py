@@ -1,6 +1,8 @@
-"""The hand-written CUDA sweep kernel on the card: against its plain PyTorch
-version, through the public entry points, and its input checks. Marked
-``cuda``; each test skips where ``torch.cuda.is_available()`` is false.
+"""The hand-written CUDA kernels on the card (the bitonic sweep, the digit
+histogram and the two probes): against their plain PyTorch versions,
+through the public entry points (the bitonic and the portable engines), and
+their input checks. Marked ``cuda``; each test skips where
+``torch.cuda.is_available()`` is false.
 
 On a machine with an NVIDIA Hopper GPU:
 ``python -m pytest tests/test_torch_cuda.py -m cuda -q``
@@ -17,6 +19,9 @@ import torch
 
 import tinyhipradixsort_torch as tthrs
 from tinyhipradixsort_torch.ops import bitonic_engine as tbe
+from tinyhipradixsort_torch.ops import histogram as th
+from tinyhipradixsort_torch.tools import gather_floor as tgf
+from tinyhipradixsort_torch.tools import partition_dma_floor as tpd
 
 pytestmark = pytest.mark.cuda
 
@@ -109,3 +114,101 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         tbe.run_sweep([good, good.cpu()], sweep, 1)
     with pytest.raises(ValueError):
         tbe.run_sweep([good], sweep, 2)
+
+
+@pytest.mark.parametrize("n,wide,shift,width,tile", [
+    (1 << 20, False, 0, 8, 8192), (1 << 20, False, 24, 8, 2048),
+    (1 << 20, False, 31, 1, 8192), (1 << 20, False, 30, 2, 3000),
+    (1000003, False, 4, 5, 1024), (5 << 20, False, 8, 8, 1 << 22),
+    (1 << 20, False, 0, 14, 8192), (1 << 20, True, 40, 8, 8192),
+    (0, False, 0, 8, 8192), (777, True, 60, 4, 1024)])
+def test_histogram_kernel_matches_plain_version(cuda, n, wide, shift, width,
+                                                tile):
+    rng = np.random.default_rng(n + shift)
+    x = rng.integers(0, 2**64 if wide else 2**32, size=n,
+                     dtype=np.uint64 if wide else np.uint32)
+    bits = torch.from_numpy(x.view(np.int64 if wide else np.int32)).to(cuda)
+    before = th.KERNEL_LAUNCHES
+    got = th.digit_histogram(bits, shift, width, tile)
+    assert th.KERNEL_LAUNCHES == before + 1 and got.is_cuda
+    want = th.digit_histogram_reference(bits, shift, width, tile)
+    assert torch.equal(got, want)
+
+
+def test_histogram_kernel_refuses_what_it_does_not_take(cuda):
+    with pytest.raises(TypeError):
+        th.digit_histogram(torch.zeros(64, device=cuda), 0, 8)
+    with pytest.raises(ValueError):
+        th.digit_histogram(torch.zeros(64, dtype=torch.int32, device=cuda),
+                           30, 8)
+
+
+@pytest.mark.parametrize("method", ["counting", "argsort", "lsd_argsort"])
+def test_portable_engines_on_the_card(cuda, method):
+    rng = np.random.default_rng(12)
+    for dtype in (np.uint32, np.float32, np.float64, np.int64):
+        x = _rand_keys(rng, dtype, 100_003)
+        vals = rng.integers(0, 2**32, size=(100_003, 4), dtype=np.uint32)
+        before = th.KERNEL_LAUNCHES
+        for desc in (False, True):
+            order = "descending" if desc else "ascending"
+            perm = _oracle_perm(x, desc)
+            k, v = tthrs.sort_pairs(torch.from_numpy(x).to(cuda),
+                                    torch.from_numpy(vals).to(cuda),
+                                    order=order, method=method)
+            assert k.is_cuda and v.is_cuda
+            np.testing.assert_array_equal(_bits(k), _bits(x[perm]))
+            np.testing.assert_array_equal(v.cpu().numpy(), vals[perm])
+        assert (th.KERNEL_LAUNCHES > before) == (method == "counting")
+    rows = rng.integers(0, 2**32, size=(64, 3000), dtype=np.uint32)
+    got = tthrs.sort_keys(torch.from_numpy(rows).to(cuda), method=method)
+    np.testing.assert_array_equal(got.cpu().numpy(), np.sort(rows, axis=1))
+    x = rng.integers(0, 2**32, size=50_000, dtype=np.uint32)
+    seg = tthrs.segment_ids_from_offsets(
+        torch.tensor([0, 7, 7, 1000, 40_000], device=cuda), 50_000)
+    perm = tthrs.sort_indices(torch.from_numpy(x).to(cuda), segment_ids=seg,
+                              method=method)
+    np.testing.assert_array_equal(perm.cpu().numpy(),
+                                  np.lexsort((x, seg.cpu().numpy())))
+
+
+def test_16bit_keys_on_the_card(cuda):
+    rng = np.random.default_rng(16)
+    raw = rng.integers(0, 2**16, size=70_000, dtype=np.uint16)
+    for tdtype in (torch.float16, torch.bfloat16):
+        keys = torch.from_numpy(raw.view(np.int16)).to(cuda).view(tdtype)
+        want = torch.from_numpy(raw.view(np.int16)).view(tdtype)
+        for method in ("counting", "argsort"):
+            got = tthrs.sort_keys(keys, method=method)
+            cpu = tthrs.sort_keys(want, method=method)
+            assert torch.equal(got.cpu().view(torch.int16),
+                               cpu.view(torch.int16))
+
+
+def test_numpy_inputs_go_to_the_card(cuda):
+    x = np.arange(5000, dtype=np.uint32)[::-1].copy()
+    for method in ("bitonic", "counting"):
+        out = tthrs.sort_keys(x, method=method)
+        assert out.is_cuda
+        np.testing.assert_array_equal(out.cpu().numpy(), np.sort(x))
+    k, v = tthrs.sort_pairs(list(x), np.arange(5000), method="argsort")
+    assert k.is_cuda and v.is_cuda
+    assert tthrs.segment_ids_from_offsets([0, 10], 20).is_cuda
+
+
+@pytest.mark.parametrize("m,rounds", [(1, 5), (4096, 2048), (16384, 3)])
+def test_gather_floor_kernel_matches_plain_version(cuda, m, rounds):
+    idx, src = tgf.make_tables(m, seed=m)
+    before = tgf.KERNEL_LAUNCHES
+    got = tgf.gather_checksum(idx, src, rounds)
+    assert tgf.KERNEL_LAUNCHES == before + 1
+    assert torch.equal(got, tgf.gather_checksum_reference(idx, src, rounds))
+
+
+@pytest.mark.parametrize("r,t", [(1024, 8), (1000, 3), (7, 2)])
+def test_partition_scatter_kernel_matches_plain_version(cuda, r, t):
+    offs, src = tpd.make_inputs(t, r, seed=r)
+    before = tpd.KERNEL_LAUNCHES
+    got = tpd.partition_scatter(offs, src, r)
+    assert tpd.KERNEL_LAUNCHES == before + 1
+    assert torch.equal(got, tpd.partition_scatter_reference(offs, src, r))

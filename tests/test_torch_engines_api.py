@@ -1,0 +1,201 @@
+"""The port's portable engines on every API axis beyond dtype and order,
+against the JAX package with the same method, bit-exact: bit windows,
+``(n, 4)`` u128 payloads and payload trees, 2-D rows, ``segment_ids=`` and
+``segment_ids_from_offsets``; and where inputs that are not torch tensors
+go.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import tinyhipradixsort_torch as tthrs
+import tinyhipradixsort_tpu as jthrs
+from tests.test_torch_engines import METHODS, check_port
+from tests.torch_helpers import assert_bits_equal, rand_keys, to_torch
+from tinyhipradixsort_torch import sort as tsort
+from tinyhipradixsort_torch.ops import counting_engine
+from tinyhipradixsort_torch.ops import histogram as th
+
+RNG_SEED = 0xE9
+
+
+@pytest.mark.parametrize("window", [(0, 8), (8, 16), (3, 29), None],
+                         ids=str)
+@pytest.mark.parametrize("method", METHODS)
+def test_window_parity(method, window):
+    rng = np.random.default_rng(RNG_SEED)
+    kw = {} if window is None else dict(start_bit=window[0],
+                                        end_bit=window[1])
+    dtypes = [np.uint32, np.float32, np.int64]
+    if window is None or window[1] <= 16:
+        dtypes.append(np.float16)
+    for dtype in dtypes:
+        for n in (129, 2049):
+            x = rand_keys(rng, dtype, n)
+            vals = np.arange(n, dtype=np.uint32)
+            check_port(x, vals, method, f"{method} {np.dtype(dtype).name} "
+                       f"{window} n={n}", order="descending", **kw)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_u128_payload_and_tree_parity(method):
+    n = 2049
+    rng = np.random.default_rng(RNG_SEED + 1)
+    x = rand_keys(rng, np.uint64, n)
+    x[::3] = x[0]
+    values = {"u128": rng.integers(0, 2**32, size=(n, 4), dtype=np.uint32),
+              "f64": rand_keys(rng, np.float64, n),
+              "u8": rng.integers(0, 256, size=n, dtype=np.uint8)}
+    jk, jv = jthrs.sort_pairs(jnp.asarray(x),
+                              {k: jnp.asarray(v) for k, v in values.items()},
+                              method=method)
+    k, v = tthrs.sort_pairs(
+        to_torch(x), {"nested": [to_torch(values["u128"])],
+                      "f64": to_torch(values["f64"]),
+                      "u8": to_torch(values["u8"])}, method=method)
+    assert_bits_equal(k, np.asarray(jk))
+    assert tuple(v["nested"][0].shape) == (n, 4)
+    assert_bits_equal(v["nested"][0], np.asarray(jv["u128"]))
+    for name in ("f64", "u8"):
+        assert_bits_equal(v[name], np.asarray(jv[name]))
+
+
+@pytest.mark.parametrize("shape", [(3, 129), (4, 2048)], ids=str)
+@pytest.mark.parametrize("method", METHODS)
+def test_rows_parity(method, shape):
+    rng = np.random.default_rng(RNG_SEED + shape[0])
+    for dtype, order in ((np.uint32, "ascending"), (np.float16, "descending"),
+                         (np.int64, "ascending")):
+        x = rand_keys(rng, dtype, shape[0] * shape[1]).reshape(shape)
+        x[:, ::4] = x[:, 1:2]
+        vals = rng.integers(0, 2**32, size=(*shape, 4), dtype=np.uint32)
+        check_port(x, vals, method, f"{method} {np.dtype(dtype).name} "
+                   f"{shape}", order=order)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_segment_ids_parity(method):
+    rng = np.random.default_rng(RNG_SEED + 2)
+    n = 2049
+    cases = [
+        (np.uint32, np.sort(rng.integers(0, 17, size=n)).astype(np.int32)),
+        (np.float32, rng.integers(-3, 4, size=n).astype(np.int32)),  # ungrouped
+        (np.float16, np.sort(rng.integers(0, 9, size=n)).astype(np.uint8)),
+        (np.int64, np.sort(rng.integers(0, 2**40, size=n)).astype(np.int64)),
+    ]
+    for dtype, seg in cases:
+        x = rand_keys(rng, dtype, n)
+        vals = rng.integers(0, 2**32, size=n, dtype=np.uint32)
+        for order in ("ascending", "descending"):
+            check_port(x, vals, method, f"{method} {np.dtype(dtype).name} "
+                       f"{seg.dtype} {order}", order=order, segment_ids=seg)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_segment_ids_in_rows_parity(method):
+    rng = np.random.default_rng(RNG_SEED + 3)
+    x = rand_keys(rng, np.uint32, 3 * 400).reshape(3, 400)
+    seg = np.sort(rng.integers(0, 5, size=(3, 400)), axis=1).astype(np.int32)
+    vals = rng.integers(0, 2**32, size=(3, 400), dtype=np.uint32)
+    check_port(x, vals, method, f"{method} rows+segments", segment_ids=seg)
+
+
+@pytest.mark.parametrize("offsets", [[0, 3, 7], [3, 7], [0, 0, 3, 7, 10],
+                                     [], [0], [10]], ids=str)
+def test_segment_ids_from_offsets_parity(offsets):
+    n = 10
+    got = tthrs.segment_ids_from_offsets(torch.tensor(offsets,
+                                                      dtype=torch.int32), n)
+    want = np.asarray(jthrs.segment_ids_from_offsets(
+        jnp.asarray(np.array(offsets, np.int32)), n))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_segment_ids_from_offsets_feeds_a_segmented_sort():
+    rng = np.random.default_rng(RNG_SEED + 4)
+    n = 4097
+    offs = np.sort(rng.integers(0, n, size=40)).astype(np.int32)
+    x = rand_keys(rng, np.uint32, n)
+    seg = tthrs.segment_ids_from_offsets(to_torch(offs), n)
+    for method in METHODS:
+        got = tthrs.sort_indices(to_torch(x), segment_ids=seg, method=method)
+        np.testing.assert_array_equal(
+            got.numpy(), np.lexsort((x, seg.numpy())), err_msg=method)
+
+
+def test_portable_validation():
+    x = torch.arange(8, dtype=torch.int32)
+    for method in METHODS:
+        with pytest.raises(ValueError):
+            tthrs.sort_keys(x, segment_ids=torch.zeros(9, dtype=torch.int32),
+                            method=method)
+        with pytest.raises(TypeError):
+            tthrs.sort_keys(x, segment_ids=torch.zeros(8), method=method)
+        with pytest.raises(TypeError):
+            tthrs.sort_keys(x, segment_ids=torch.zeros(8, dtype=torch.bool),
+                            method=method)
+        with pytest.raises(ValueError):
+            tthrs.sort_keys(torch.zeros((2, 3, 4), dtype=torch.int32),
+                            method=method)
+        with pytest.raises(ValueError):
+            tthrs.sort_pairs(x.view(2, 4), torch.zeros(2, 5), method=method)
+        # narrow integer ids widen
+        out = tthrs.sort_keys(x.flip(0), method=method,
+                              segment_ids=torch.zeros(8, dtype=torch.uint8))
+        assert_bits_equal(out, np.arange(8, dtype=np.int32))
+    for shape in ((3, 0), (3, 1), (0, 5)):
+        z = torch.zeros(shape, dtype=torch.uint32)
+        for method in METHODS:
+            k, v = tthrs.sort_pairs(z, z.view(torch.int32), method=method)
+            assert k.shape == z.shape and v.shape == z.shape
+
+
+def test_counting_engine_uses_the_histogram_on_cpu_tensors_only():
+    before = th.KERNEL_LAUNCHES
+    x = rand_keys(np.random.default_rng(5), np.uint32, 5000)
+    assert_bits_equal(tthrs.sort_keys(to_torch(x), method="counting"),
+                      np.sort(x))
+    assert th.KERNEL_LAUNCHES == before  # plain version on CPU tensors
+    with pytest.raises(ValueError):
+        counting_engine.sort_arrays_counting(
+            to_torch(x).view(torch.int32), [to_torch(x)], 0, 32, tile=1000)
+
+
+def test_non_tensor_inputs_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.arange(16, dtype=np.uint32)[::-1].copy()
+    for call in (lambda: tthrs.sort_keys(x),
+                 lambda: tthrs.sort_keys(list(x), method="counting"),
+                 lambda: tthrs.sort_pairs(to_torch(x), x),
+                 lambda: tthrs.sort_indices(to_torch(x), method="argsort",
+                                            segment_ids=np.zeros(16, np.int32)),
+                 lambda: tthrs.segment_ids_from_offsets([0, 4], 16),
+                 lambda: tthrs.RadixSort().sort_keys(x)):
+        with pytest.raises(RuntimeError, match="pass a CPU tensor"):
+            call()
+    # a CPU tensor is the caller's request for the CPU
+    out = tthrs.sort_keys(to_torch(x), method="counting")
+    assert out.device.type == "cpu"
+    assert_bits_equal(out, np.sort(x))
+
+
+def test_non_tensor_inputs_go_to_the_cuda_device(monkeypatch):
+    seen = []
+    as_tensor = torch.as_tensor
+
+    def fake_as_tensor(data, device=None):
+        seen.append(device)
+        return as_tensor(data)  # stays on the CPU here: no card
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tsort.torch, "as_tensor", fake_as_tensor)
+    keys = np.arange(8, dtype=np.int32)
+    tsort._as_input(keys, "keys")
+    tsort._as_input([1, 2, 3], "values")
+    assert seen == ["cuda", "cuda"]
+    t = torch.arange(3)
+    assert tsort._as_input(t, "keys") is t  # tensors keep their device
+    assert seen == ["cuda", "cuda"]

@@ -1,5 +1,5 @@
 """Importing the PyTorch port loads neither JAX nor Triton and builds
-nothing: the CUDA kernel is compiled only at the first sort of a CUDA
+nothing: each CUDA kernel is compiled only at its first use on a CUDA
 tensor."""
 
 import os
@@ -14,10 +14,14 @@ import sys
 import tinyhipradixsort_torch
 import tinyhipradixsort_torch.sort, tinyhipradixsort_torch.config
 from tinyhipradixsort_torch.ops import bitonic_engine, cuda_lib, network_engine
+from tinyhipradixsort_torch.ops import argsort_engine, counting_engine, histogram
+from tinyhipradixsort_torch.tools import gather_floor, partition_dma_floor
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "triton"))
 assert not loaded, loaded
-assert not cuda_lib.BUILD_INFO and bitonic_engine.KERNEL_LAUNCHES == 0
+assert not cuda_lib.BUILD_INFO
+for mod in (bitonic_engine, histogram, gather_floor, partition_dma_floor):
+    assert mod.KERNEL_LAUNCHES == 0, mod
 print("clean")
 """
 

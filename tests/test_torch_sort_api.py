@@ -1,5 +1,6 @@
 """The PyTorch port's public API: bit windows, float specials, payload
-trees, larger sizes against the numpy oracles, and what this slice refuses.
+trees, larger sizes against the numpy oracles, and what the bitonic engine
+still refuses.
 
 Parity cases run the JAX package with ``method="pallas"`` (interpreted on
 the CPU) and compare bit-exactly on unsigned views.
@@ -125,16 +126,21 @@ def test_port_against_numpy_oracles(kind, dtype, n, desc):
 
 
 def test_refuses_what_later_slices_port():
+    # the bitonic engine ("auto" too) refuses 2-D keys, segment_ids= and
+    # 16-bit keys until its later slices; the portable engines sort them
     x = torch.arange(64, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        tthrs.sort_keys(x.reshape(8, 8))
-    with pytest.raises(NotImplementedError):
-        tthrs.sort_keys(x, segment_ids=torch.zeros(64, dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        tthrs.sort_keys(x.to(torch.int16))
-    for method in ("argsort", "lsd_argsort", "counting"):
+    for method in ("auto", "bitonic"):
         with pytest.raises(NotImplementedError):
-            tthrs.sort_pairs(x, x, method=method)
+            tthrs.sort_keys(x.reshape(8, 8), method=method)
+        with pytest.raises(NotImplementedError):
+            tthrs.sort_keys(x, segment_ids=torch.zeros(64, dtype=torch.int32),
+                            method=method)
+        with pytest.raises(NotImplementedError):
+            tthrs.sort_keys(x.to(torch.int16), method=method)
+    for method in ("argsort", "lsd_argsort", "counting"):
+        k, v = tthrs.sort_pairs(x.flip(0), x, method=method)
+        assert_bits_equal(k, np.arange(64, dtype=np.int32))
+        assert_bits_equal(v, np.arange(64, dtype=np.int32)[::-1])
     with pytest.raises(ValueError):
         tthrs.sort_keys(x, method="pallas")
     with pytest.raises(NotImplementedError):

@@ -1,17 +1,20 @@
 """tinyhipradixsort_torch — the sort engine of ``tinyhipradixsort_tpu``
-ported to PyTorch, with its bitonic sweep kernel written by hand in CUDA for
-NVIDIA Hopper (H100, ``sm_90a``).
+ported to PyTorch, with its kernels written by hand in CUDA for NVIDIA
+Hopper (H100, ``sm_90a``): the bitonic sweep and the digit histogram.
 
-Stable radix-semantics sort of 32/64-bit integer and float keys over any bit
-window, ascending or descending, keys-only, key-value (payload tensors or
-dicts/lists of them) and argsort outputs. The package imports ``torch``
-only; the CUDA kernel is built from ``csrc/`` at the first sort of a CUDA
-tensor, never at import. CPU tensors run the kernel's plain PyTorch version.
+Stable radix-semantics sort of 16/32/64-bit integer and float keys over any
+bit window, ascending or descending, keys-only, key-value (payload tensors
+or dicts/lists of them) and argsort outputs, on the bitonic engine or the
+portable engines (counting, argsort, LSD argsort), which also take batched
+2-D keys and ``segment_ids=``. The package imports ``torch`` only; each CUDA
+kernel is built from ``csrc/`` at its first use on a CUDA tensor, never at
+import. CPU tensors run the kernels' plain PyTorch versions.
 """
 
 from .config import Config, KeyType, SortOrder, ValueType, temporary_buffer_bytes
 from .keybits import key_bits, key_bits_inverse, np_key_bits, np_key_bits_inverse
-from .sort import RadixSort, sort_indices, sort_keys, sort_pairs
+from .sort import (RadixSort, segment_ids_from_offsets, sort_indices,
+                   sort_keys, sort_pairs)
 
 __version__ = "0.1.0"
 
@@ -25,6 +28,7 @@ __all__ = [
     "key_bits_inverse",
     "np_key_bits",
     "np_key_bits_inverse",
+    "segment_ids_from_offsets",
     "sort_indices",
     "sort_keys",
     "sort_pairs",

@@ -53,6 +53,36 @@ def window_values(bits: torch.Tensor, start_bit: int, end_bit: int) -> torch.Ten
     return (bits >> start_bit) & ((1 << (end_bit - start_bit)) - 1)
 
 
+def extract_digit(bits: torch.Tensor, shift: int, width: int) -> torch.Tensor:
+    """The digit ``bits[shift : shift + width]`` as int32 in ``[0, 2**width)``.
+
+    ``>>`` is arithmetic on the int32/int64 bits, so the mask comes after
+    the shift and drops the copied sign bits.
+    """
+    mask = (1 << width) - 1 if width < bits.dtype.itemsize * 8 else -1
+    return ((bits >> shift) & mask).to(torch.int32)
+
+
+_SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+_UNSIGNED = (torch.uint16, torch.uint32, torch.uint64)
+
+
+def take(a: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``a`` permuted along its element axis by ``src``: axis 0 for a 1-D
+    ``src``, axis 1 of each row for a 2-D ``(B, n)`` ``src``. Bits are
+    copied as they are; unsigned tensors (which torch cannot index on every
+    device) move through their signed view."""
+    dtype = a.dtype
+    if dtype in _UNSIGNED:
+        a = a.view(_SIGNED[dtype.itemsize])
+    if src.ndim == 1:
+        out = a.index_select(0, src)
+    else:
+        idx = src.long().reshape(src.shape + (1,) * (a.ndim - 2))
+        out = torch.take_along_dim(a, idx, dim=1)
+    return out.view(dtype)
+
+
 def pad_to_multiple(x: torch.Tensor, multiple: int, fill: int) -> torch.Tensor:
     """Copy 1-D ``x`` into a fresh contiguous buffer whose length is a
     multiple of ``multiple``, filling the tail with ``fill``.

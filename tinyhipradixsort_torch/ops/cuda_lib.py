@@ -5,7 +5,9 @@ No JAX counterpart: the JAX package's kernels (Pallas, e.g. in
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
 plain C interface and loaded with ``ctypes``. Nothing is compiled at import:
-:func:`load` builds at the first call that needs a kernel. The library goes
+:func:`load` builds at the first call that needs a kernel, and
+:func:`build` builds several sources at once, one ``nvcc`` each, in
+parallel. The library goes
 to ``tinyhipradixsort_torch/_build/`` under a name that carries the hash of
 the source and the flags, so an edited source is rebuilt and an unchanged one
 is reused. The build writes a temporary file and renames it, so processes
@@ -57,29 +59,46 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def build(names) -> None:
+    """Build the libraries of ``csrc/<name>.cu`` for every name that is not
+    built yet, one ``nvcc`` process per source, all started together.
+    Records each in :data:`BUILD_INFO`; raises if any build fails."""
+    jobs = []
+    for name in names:
+        so = library_path(name)
+        BUILD_INFO[name] = {"path": str(so), "seconds": 0.0, "log": ""}
+        if so.is_file():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, so, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, so, tmp, proc, t0 in jobs:
+        out, _ = proc.communicate()
+        info = BUILD_INFO[name]
+        info["seconds"] = time.perf_counter() - t0
+        info["log"] = out.strip()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed ({proc.returncode}) building {name}:"
+                          f"\n{info['log']}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The library built from ``csrc/<name>.cu``, building it if needed."""
     lib = _LOADED.get(name)
     if lib is not None:
         return lib
-    so = library_path(name)
-    info = {"path": str(so), "seconds": 0.0, "log": ""}
-    if not so.is_file():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC_DIR / f"{name}.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        info["seconds"] = time.perf_counter() - t0
-        info["log"] = (proc.stdout + proc.stderr).strip()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {name}:\n"
-                f"{info['log']}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    if name not in BUILD_INFO:
+        build([name])
+    lib = ctypes.CDLL(BUILD_INFO[name]["path"])
     _LOADED[name] = lib
-    BUILD_INFO[name] = info
     return lib

@@ -1,0 +1,145 @@
+"""Per-tile digit histograms, the reference ``blockCount`` (PyTorch port of
+``tinyhipradixsort_tpu/ops/histogram.py``).
+
+Reference: kernel.cu:73-103, one thread block per tile builds a 256-bin
+shared-memory histogram with atomics. CUDA tensors go through the
+hand-written kernel ``csrc/digit_histogram.cu``, which does just that;
+CPU tensors through :func:`digit_histogram_reference`, its plain PyTorch
+version. The counting engine (:mod:`.counting_engine`) takes its stage-1
+counts from here.
+
+Outputs match the reference's layout transposed: ``(num_tiles, 2**width)``
+(the reference stores bucket-major, kernel.cu:97; ``counts.T.reshape(-1)``
+reproduces its counter array).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import common, cuda_lib
+
+DEFAULT_TILE = 1 << 13
+MIN_TILE = 1024
+MAX_TILE = 1 << 22
+
+#: launches of the CUDA histogram kernel in this process (counted only where
+#: the kernel is launched)
+KERNEL_LAUNCHES = 0
+
+
+def round_tile(tile: int) -> int:
+    """The tile the histogram really uses: a multiple of 128 in
+    ``[1024, 2**22]`` (the tile is a throughput knob, not a semantic
+    contract; counts are per returned tile)."""
+    return max(MIN_TILE, min(-(-tile // 128) * 128, MAX_TILE))
+
+
+def _check(bits: torch.Tensor, shift: int, width: int) -> torch.Tensor:
+    """``bits`` as a 1-D int32/int64 tensor (unsigned ones by their signed
+    view), after checking the digit window."""
+    if bits.dtype in (torch.uint32, torch.uint64):
+        bits = bits.view(torch.int32 if bits.dtype == torch.uint32
+                         else torch.int64)
+    if bits.dtype not in (torch.int32, torch.int64) or bits.ndim != 1:
+        raise TypeError("digit_histogram takes 1-D 32- or 64-bit key bits, "
+                        f"got {bits.dtype} of shape {tuple(bits.shape)}")
+    nbits = bits.dtype.itemsize * 8
+    # 64-bit bits are first shifted into a 32-bit word, so the window of
+    # the word is [0, width)
+    word_end = width if nbits == 64 else shift + width
+    if not (0 <= shift < nbits and width >= 1 and word_end <= 32):
+        raise ValueError(f"digit window shift={shift} width={width} does not "
+                         f"fit {nbits}-bit bits (shift + width <= 32 after a "
+                         "64-bit shift)")
+    return bits
+
+
+def _num_tiles(n: int, tile: int) -> int:
+    return -(-max(n, 1) // tile)
+
+
+def digit_histogram_reference(bits: torch.Tensor, shift: int = 0,
+                              width: int = 8,
+                              tile: int = DEFAULT_TILE) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: one ``bincount`` over
+    ``(tile_id << width) | digit``, with the all-ones tail pad counted into
+    the last tile's top bucket."""
+    bits = _check(bits, shift, width)
+    tile = round_tile(tile)
+    n = bits.shape[0]
+    T = _num_tiles(n, tile)
+    nb = 1 << width
+    digit = common.extract_digit(bits, shift, width).to(torch.int64)
+    tile_id = torch.arange(n, dtype=torch.int64, device=bits.device) // tile
+    counts = torch.bincount((tile_id << width) | digit, minlength=T * nb)
+    counts = counts.view(T, nb)
+    counts[-1, -1] += T * tile - n
+    return counts.to(torch.int32)
+
+
+@functools.cache
+def _hist_fn():
+    fn = cuda_lib.load("digit_histogram").thrs_digit_histogram
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_histogram(bits: torch.Tensor, shift: int, width: int,
+                      tile: int) -> torch.Tensor:
+    global KERNEL_LAUNCHES
+    bits = _check(bits, shift, width).contiguous()
+    tile = round_tile(tile)
+    n = bits.shape[0]
+    T = _num_tiles(n, tile)
+    out = torch.empty((T, 1 << width), dtype=torch.int32, device=bits.device)
+    fn = _hist_fn()
+    with torch.cuda.device(bits.device):
+        stream = torch.cuda.current_stream(bits.device).cuda_stream
+        rc = fn(bits.data_ptr(), bits.dtype.itemsize, n, shift, width, tile,
+                T, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"digit histogram kernel launch failed: CUDA error "
+                           f"{rc} (n={n} shift={shift} width={width} "
+                           f"tile={tile})")
+    KERNEL_LAUNCHES += 1
+    return out
+
+
+def digit_histogram(bits: torch.Tensor, shift: int = 0, width: int = 8,
+                    tile: int = DEFAULT_TILE) -> torch.Tensor:
+    """Histogram of the digit ``bits[shift : shift + width]`` per tile.
+
+    bits: 1-D key bits (int32/int64 holding the unsigned pattern, or
+    uint32/uint64). Returns ``(num_tiles, 2**width)`` int32. The tile is
+    rounded by :func:`round_tile`; the tail is counted as if padded with
+    all-ones bits, whose digit is ``2**width - 1`` for every window, so the
+    pad inflates the last tile's top bucket. Callers that need exact counts
+    subtract ``num_tiles * tile - n`` from ``counts[-1, -1]``. 64-bit bits
+    are first shifted into a 32-bit word; then ``shift + width <= 32``.
+
+    CUDA tensors go through the kernel (built at first use), CPU tensors
+    through :func:`digit_histogram_reference`; any other device raises.
+    """
+    if common.on_cuda(bits):
+        return _launch_histogram(bits, shift, width, tile)
+    if bits.device.type != "cpu":
+        raise ValueError(f"no histogram implementation for {bits.device}")
+    return digit_histogram_reference(bits, shift, width, tile)
+
+
+def exclusive_scan_bucket_major(counts: torch.Tensor) -> torch.Tensor:
+    """Reference counter scan: flat exclusive prefix sum over the
+    bucket-major (bucket, tile) counter array (kernel.cu:136-204), in the
+    counts' own dtype. ``counts`` is ``(T, B)``, or ``(R, T, B)`` for R
+    independent rows (each row scanned on its own)."""
+    flat = counts.transpose(-1, -2).reshape(*counts.shape[:-2], -1)
+    ex = torch.cumsum(flat, dim=-1, dtype=counts.dtype) - flat
+    return ex.view(*counts.shape[:-2], counts.shape[-1],
+                   counts.shape[-2]).transpose(-1, -2)

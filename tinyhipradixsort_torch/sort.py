@@ -2,13 +2,16 @@
 
 Equivalents of the reference host API (reference: tinyhipradixsort.hpp:845-852
 ``sortKeys``/``sortPairs``), on torch tensors. Work runs on the device the
-keys live on: CUDA tensors go through the hand-written Hopper kernel, CPU
-tensors through its plain PyTorch version.
+keys live on: CUDA tensors go through the hand-written Hopper kernels, CPU
+tensors through their plain PyTorch versions. Inputs that are not torch
+tensors (numpy arrays, lists) go to the CUDA device; without one they raise,
+since a CPU run is asked for by passing a CPU tensor.
 
 * :func:`sort_keys`    — stable radix-semantics sort of a key tensor.
 * :func:`sort_pairs`   — stable key-value sort; values are a tensor or a
-  (nested) dict, list or tuple of tensors whose leading axis matches the keys.
+  (nested) dict, list or tuple of tensors whose leading axes match the keys.
 * :func:`sort_indices` — the stable sorting permutation.
+* :func:`segment_ids_from_offsets` — CUB-style offsets to ``segment_ids``.
 * :class:`RadixSort`   — config-holding wrapper for reference-API parity.
 
 Semantics (identical to the reference and to the JAX package): stable;
@@ -17,10 +20,14 @@ sorts by the key-bit transform of :mod:`.keybits` while original key values
 select any bit window of the transformed bits; descending order is the
 bitwise complement of the transform, still stable.
 
-This slice covers 1-D keys of u32, i32, f32, u64, i64 and f64. These raise
-``NotImplementedError`` until their slices are ported: 2-D (batched) keys,
-``segment_ids=``, 16-bit keys, and the portable engines (``"argsort"``,
-``"lsd_argsort"``, ``"counting"``).
+Engines (``method=``): ``"auto"`` and ``"bitonic"`` run the bitonic network
+(``csrc/bitonic_sweep.cu``) on 1-D keys of u32, i32, f32, u64, i64 and
+f64. The portable engines ``"counting"`` (the reference's histogram, scan
+and scatter pass; its histogram is ``csrc/digit_histogram.cu``),
+``"argsort"`` and ``"lsd_argsort"`` (``torch.sort``) take every key dtype,
+16-bit included, 2-D keys (each row sorted on its own) and
+``segment_ids=``. The bitonic engine raises ``NotImplementedError`` for
+those until its later slices.
 """
 
 from __future__ import annotations
@@ -29,23 +36,61 @@ import torch
 
 from . import keybits
 from .config import Config, SortOrder
-from .ops import common, network_engine
+from .ops import argsort_engine, common, counting_engine, network_engine
 from .ops.bitonic_engine import EngineTuning
 
-__all__ = ["sort_keys", "sort_pairs", "sort_indices", "RadixSort"]
+__all__ = ["sort_keys", "sort_pairs", "sort_indices", "RadixSort",
+           "segment_ids_from_offsets"]
 
 _ENGINES = ("auto", "bitonic", "counting", "argsort", "lsd_argsort")
+_PORTABLE = {
+    "argsort": argsort_engine.sort_arrays_argsort,
+    "lsd_argsort": argsort_engine.sort_arrays_lsd_argsort,
+    "counting": counting_engine.sort_arrays_counting,
+}
+_INT_DTYPES = (torch.int8, torch.uint8, torch.int16, torch.uint16,
+               torch.int32, torch.uint32, torch.int64, torch.uint64)
 
 
 def _resolve_method(method: str) -> str:
-    """``"auto"`` and ``"bitonic"`` resolve to the bitonic engine."""
+    """``"auto"`` resolves to the bitonic engine."""
     if method not in _ENGINES:
         raise ValueError(f"unknown method {method!r}; expected one of {_ENGINES}")
-    if method not in ("auto", "bitonic"):
-        raise NotImplementedError(
-            f"the {method!r} engine is not ported yet (portable engines: "
-            "ROADMAP queue 1, item 6); use 'bitonic'")
-    return "bitonic"
+    return "bitonic" if method == "auto" else method
+
+
+def _as_input(x, what: str) -> torch.Tensor:
+    """A torch tensor keeps its device (a CPU tensor asks for the CPU);
+    anything else (numpy array, list) goes to the CUDA device."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what} is not a torch tensor, so it would go to the CUDA "
+            "device, and there is none; pass a CPU tensor to sort on the CPU")
+    return torch.as_tensor(x, device="cuda")
+
+
+def segment_ids_from_offsets(offsets, n: int) -> torch.Tensor:
+    """CUB-style segment description -> ``segment_ids`` tensor.
+
+    ``offsets``: non-decreasing segment start offsets (1-D integers, with or
+    without the leading 0 / trailing ``n``). Returns int32 of length ``n``
+    where element ``i`` holds the index of the segment containing ``i``,
+    with empty *leading* segments collapsed to index 0 (the labeling groups
+    exactly like cub::DeviceSegmentedRadixSort's ``d_begin_offsets``).
+    """
+    offsets = _as_input(offsets, "offsets")
+    if offsets.ndim != 1:
+        raise ValueError(f"offsets must be 1-D, got shape {tuple(offsets.shape)}")
+    offsets = offsets.to(torch.int64)
+    pos = torch.arange(n, dtype=torch.int64, device=offsets.device)
+    ids = torch.searchsorted(offsets, pos, right=True)
+    # boundaries at or before position 0 (an explicit leading 0) shift every
+    # id; remove them so element 0 always gets id 0
+    zero = torch.zeros(1, dtype=torch.int64, device=offsets.device)
+    ids = ids - torch.searchsorted(offsets, zero, right=True)
+    return ids.to(torch.int32)
 
 
 def _flatten(tree):
@@ -60,11 +105,58 @@ def _flatten(tree):
         leaves = [leaf for ls, _ in parts for leaf in ls]
         kind = list if isinstance(tree, list) else tuple
         return leaves, lambda it: kind(rb(it) for _, rb in parts)
-    return [torch.as_tensor(tree)], next
+    return [_as_input(tree, "values")], next
 
 
-def _sort_entry(keys, values, *, descending, start_bit, end_bit, want,
-                zeros_exact=True, tuning=None):
+def _sort_portable(keys, leaves, *, method, descending, start_bit, end_bit,
+                   want, seg):
+    """The portable engines' branch of the JAX ``_sort_entry``: outputs in
+    the order of ``want``, values as a flat list of leaves."""
+    engine = _PORTABLE[method]
+    bits = keybits.key_bits(keys, descending=descending)
+    # 16-bit float keys ride as their bits plus a -0.0 flag and are rebuilt
+    # in the integer domain after the sort, as in the JAX package
+    f16_keys = "keys" in want and keys.dtype in (torch.float16, torch.bfloat16)
+    arrays = []
+    if "keys" in want:
+        arrays += [bits, keybits.neg_zero_flag(keys)] if f16_keys else [keys]
+    arrays += leaves
+    if "indices" in want:
+        n = keys.shape[-1]
+        idx_dt = torch.int32 if n < 2**31 else torch.int64
+        arrays.append(torch.arange(n, dtype=idx_dt, device=keys.device)
+                      .expand(keys.shape))
+    if seg is None:
+        out = engine(bits, arrays, start_bit, end_bit)
+    else:
+        # segmented: two stable passes (LSD composition), by the key bits,
+        # then by the segment bits
+        seg_bits = keybits.key_bits(seg)
+        out = engine(bits, arrays + [seg_bits], start_bit, end_bit)
+        out = engine(out[-1], out[:-1], 0, seg_bits.dtype.itemsize * 8)
+
+    result = []
+    pos = 0
+    if "keys" in want:
+        if f16_keys:
+            raw = keybits.key_bits_inverse_raw(out[0], keys.dtype,
+                                               descending=descending)
+            raw = torch.where(out[1] == 1, raw | 0x8000, raw)
+            result.append(keybits.raw_to_keys(raw, keys.dtype))
+            pos = 2
+        else:
+            result.append(out[0])
+            pos = 1
+    if "values" in want:
+        result.append(out[pos:pos + len(leaves)])
+        pos += len(leaves)
+    if "indices" in want:
+        result.append(out[pos])
+    return result
+
+
+def _sort_entry(keys, values, *, method, descending, start_bit, end_bit,
+                want, zeros_exact=True, seg=None, tuning=None):
     """want: subset of ('keys', 'values', 'indices') controlling outputs."""
     leaves, rebuild = [], None
     if "values" in want:
@@ -77,34 +169,64 @@ def _sort_entry(keys, values, *, descending, start_bit, end_bit, want,
             if leaf.device != keys.device:
                 raise ValueError(
                     f"value on {leaf.device}, keys on {keys.device}")
-    out = list(network_engine.sort_semantics(
-        keys, leaves, descending=descending, start_bit=start_bit,
-        end_bit=end_bit, want=want, zeros_exact=zeros_exact, tuning=tuning))
+    if method == "bitonic":
+        out = list(network_engine.sort_semantics(
+            keys, leaves, descending=descending, start_bit=start_bit,
+            end_bit=end_bit, want=want, zeros_exact=zeros_exact,
+            tuning=tuning))
+    else:
+        out = _sort_portable(keys, leaves, method=method,
+                             descending=descending, start_bit=start_bit,
+                             end_bit=end_bit, want=want, seg=seg)
     if "values" in want:
         pos = want.index("values")
         out[pos] = rebuild(iter(out[pos]))
     return tuple(out)
 
 
+def _prep_segments(segment_ids, keys):
+    """Validate ``segment_ids`` and widen them to a key-bits dtype."""
+    if segment_ids is None:
+        return None
+    seg = _as_input(segment_ids, "segment_ids")
+    if seg.shape != keys.shape:
+        raise ValueError(f"segment_ids shape {tuple(seg.shape)} != keys "
+                         f"shape {tuple(keys.shape)}")
+    if seg.dtype not in _INT_DTYPES:
+        raise TypeError(f"segment_ids must be integers, got {seg.dtype}")
+    if seg.device != keys.device:
+        raise ValueError(f"segment_ids on {seg.device}, keys on {keys.device}")
+    if seg.dtype.itemsize < 4:
+        seg = seg.to(torch.int32)
+    return seg
+
+
 def _prep(keys, order, start_bit, end_bit, method, segment_ids):
-    _resolve_method(method)
-    keys = torch.as_tensor(keys)
-    if segment_ids is not None:
-        raise NotImplementedError(
-            "segment_ids= is not ported yet (ROADMAP queue 1, item 5)")
-    if keys.ndim == 2:
-        raise NotImplementedError(
-            "batched 2-D keys are not ported yet (row sorts: ROADMAP queue 1, "
-            "item 5)")
-    if keys.ndim != 1:
-        raise ValueError(f"keys must be 1-D, got shape {tuple(keys.shape)}")
-    if keybits.bit_width(keys.dtype) == 16:
-        raise NotImplementedError(
-            f"{keys.dtype} keys are not ported yet (16-bit keys: ROADMAP "
-            "queue 1, item 1)")
+    method = _resolve_method(method)
+    keys = _as_input(keys, "keys")
+    if keys.ndim not in (1, 2):
+        raise ValueError(
+            "keys must be 1-D (single sort) or 2-D (batched row-wise sorts), "
+            f"got shape {tuple(keys.shape)}")
+    if method == "bitonic":
+        if segment_ids is not None:
+            raise NotImplementedError(
+                "segment_ids= on the bitonic engine is not ported yet "
+                "(ROADMAP, bitonic engine only); use method='counting', "
+                "'argsort' or 'lsd_argsort'")
+        if keys.ndim == 2:
+            raise NotImplementedError(
+                "batched 2-D keys on the bitonic engine are not ported yet "
+                "(ROADMAP, bitonic engine only); use a portable engine")
+        if keybits.bit_width(keys.dtype) == 16:
+            raise NotImplementedError(
+                f"{keys.dtype} keys on the bitonic engine are not ported yet "
+                "(ROADMAP, bitonic engine only); use a portable engine")
     descending = SortOrder.parse(order).descending
     start_bit, end_bit = common.resolve_window(keys.dtype, start_bit, end_bit)
-    return keys, descending, start_bit, end_bit
+    seg = _prep_segments(segment_ids, keys)
+    return keys, dict(method=method, descending=descending,
+                      start_bit=start_bit, end_bit=end_bit, seg=seg)
 
 
 def sort_keys(keys, *, order="ascending", start_bit=0, end_bit=None,
@@ -115,16 +237,20 @@ def sort_keys(keys, *, order="ascending", start_bit=0, end_bit=None,
     Reference parity: ``RadixSort::sortKeys`` (hpp:845-848). The input is
     never modified. ``donate=True`` is accepted and has no effect yet.
 
-    ``zeros_exact=False`` is a float-keys fast path (1 sorted word instead
-    of bits + tagged stability index): every ``-0.0`` comes back as
-    ``+0.0``. Ignored for integer keys.
+    2-D ``keys`` are a batch: each row sorts on its own (portable engines).
+    ``segment_ids`` (keys-shaped integers) selects a segmented sort:
+    elements order by ``(segment_id, key)``, stable; segment ids always
+    order ascending, ``order`` applies to keys within a segment (portable
+    engines).
+
+    ``zeros_exact=False`` is a float-keys fast path of the bitonic engine
+    (1 sorted word instead of bits + tagged stability index): every ``-0.0``
+    comes back as ``+0.0``. Ignored for integer keys and by the portable
+    engines, which are always exact.
     """
-    keys, descending, start_bit, end_bit = _prep(
-        keys, order, start_bit, end_bit, method, segment_ids)
-    (out,) = _sort_entry(
-        keys, None, descending=descending, start_bit=start_bit,
-        end_bit=end_bit, want=("keys",),
-        zeros_exact=zeros_exact, tuning=EngineTuning.from_env())
+    keys, kw = _prep(keys, order, start_bit, end_bit, method, segment_ids)
+    (out,) = _sort_entry(keys, None, want=("keys",), zeros_exact=zeros_exact,
+                         tuning=EngineTuning.from_env(), **kw)
     return out
 
 
@@ -134,39 +260,37 @@ def sort_pairs(keys, values, *, order="ascending", start_bit=0, end_bit=None,
     """Stable key-value sort; returns ``(sorted_keys, reordered_values)``.
 
     ``values`` is a tensor or a (nested) dict, list or tuple of tensors
-    whose leading axis matches the keys (reference: ``sortPairs``,
-    hpp:849-852; u128 payloads are ``(n, 4)`` 32-bit tensors).
+    whose leading axes match the keys (reference: ``sortPairs``,
+    hpp:849-852; u128 payloads are ``(n, 4)`` 32-bit tensors). 2-D keys sort
+    each row; value leaves then share the leading ``(B, n)`` axes.
 
     ``stable=False`` permits, and does not require, any order among equal
     keys (the JAX contract, ``tinyhipradixsort_tpu/sort.py``); in this port
     the sort stays stable. ``donate=True`` is accepted and has no effect
-    yet. ``zeros_exact`` has :func:`sort_keys` semantics.
+    yet. ``zeros_exact`` and ``segment_ids`` have :func:`sort_keys`
+    semantics.
     """
-    keys, descending, start_bit, end_bit = _prep(
-        keys, order, start_bit, end_bit, method, segment_ids)
-    return _sort_entry(
-        keys, values, descending=descending, start_bit=start_bit,
-        end_bit=end_bit, want=("keys", "values"), zeros_exact=zeros_exact,
-        tuning=EngineTuning.from_env())
+    keys, kw = _prep(keys, order, start_bit, end_bit, method, segment_ids)
+    return _sort_entry(keys, values, want=("keys", "values"),
+                       zeros_exact=zeros_exact,
+                       tuning=EngineTuning.from_env(), **kw)
 
 
 def sort_indices(keys, *, order="ascending", start_bit=0, end_bit=None,
                  method="auto", segment_ids=None, donate=False):
-    """The stable sorting permutation: ``keys[perm]`` is sorted. int32 for
-    n < 2**31, else int64. ``donate=True`` is accepted and has no effect
-    yet."""
-    keys, descending, start_bit, end_bit = _prep(
-        keys, order, start_bit, end_bit, method, segment_ids)
-    (perm,) = _sort_entry(
-        keys, None, descending=descending, start_bit=start_bit,
-        end_bit=end_bit, want=("indices",),
-        tuning=EngineTuning.from_env())
+    """The stable sorting permutation: ``keys[perm]`` is sorted (2-D keys:
+    the per-row permutation). int32 for n < 2**31, else int64.
+    ``donate=True`` is accepted and has no effect yet."""
+    keys, kw = _prep(keys, order, start_bit, end_bit, method, segment_ids)
+    (perm,) = _sort_entry(keys, None, want=("indices",),
+                          tuning=EngineTuning.from_env(), **kw)
     return perm
 
 
 class RadixSort:
     """Config-holding wrapper mirroring ``thrs::RadixSort`` (hpp:694-948).
-    Construction is free: the kernel builds at the first CUDA sort."""
+    Construction is free: a kernel builds at the first CUDA sort that
+    needs it."""
 
     def __init__(self, config: Config | None = None, method: str = "auto"):
         self.config = config or Config()
@@ -177,7 +301,7 @@ class RadixSort:
                     end_bit=end_bit, method=self.method)
 
     def _check(self, keys):
-        keys = torch.as_tensor(keys)
+        keys = _as_input(keys, "keys")
         if keys.dtype != self.config.key_type.dtype:
             raise TypeError(
                 f"keys dtype {keys.dtype} != configured "
