@@ -11,10 +11,12 @@ Phases, one output line each (time, kernel launches, result):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the four kernels (bitonic sweep, digit histogram, gather floor,
    partition scatter), one nvcc each, all started together, from csrc/ into
-   the ignored _build/, with each one's nvcc time and ptxas registers and
-   spills;
-3. kernel vs plain: sweeps of 1, 3 and 5 words (local, cross, forced
-   ascending) on 2**20 random words, and the cross sweeps over the top
+   the ignored _build/, with each one's nvcc time and, for each kernel
+   function (each word count of the sweep's register body), ptxas registers
+   and spill bytes (kept beside a reused library); the main path's 1-, 3-
+   and 5-word instantiations are required to spill nothing;
+3. kernel vs plain: sweeps of 1, 2, 3, 4, 5, 8 and 12 words (local, cross,
+   forced ascending) on 2**20 random words, and the cross sweeps over the top
    index bits of the 2**28 one-word and 2**24 three-word networks, through
    the CUDA kernel and through ``run_sweep_reference``, required bit-equal;
 4. main path: the public entry points at real sizes (sort_keys u32 at 2**28,
@@ -25,8 +27,10 @@ Phases, one output line each (time, kernel launches, result):
 5. timing: sort_keys u32 at 2**28 (CUDA events, median of 5 after a
    warm-up) beside torch.sort(stable=True) as the yardstick, and the first
    sweep of its network through the kernel beside its plain version, each
-   run on a fresh copy of the random keys and required bit-equal;
-6. breakdown: the device time of each of that network's sweeps;
+   run on a fresh copy of the random keys and required bit-equal; and
+   sort_pairs u32+u32 and u64+u64 at 2**24;
+6. breakdown: the device time of each of that network's sweeps, and of the
+   two pairs sorts' sweeps by group;
 7. histogram kernel vs plain: ``digit_histogram`` through the kernel and
    through ``digit_histogram_reference`` (u32 at 2**20 and 2**28, shifts
    0/8/16/24, tiles 8192 and 2048, widths 1, 2, 5 and 12, an odd tile, an n
@@ -46,7 +50,8 @@ Phases, one output line each (time, kernel launches, result):
 
 The line before the last is the kernel report, {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero
-without a result; so does a machine without CUDA.
+without a result; so does a machine without CUDA. ``timing_only()`` runs
+phases 5 and 6 alone (see there).
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import sys
 import time
@@ -87,9 +93,12 @@ KERNELS = {
     "gather_floor": "tools/gather_floor.py:43",
     "partition_scatter": "tools/partition_dma_floor.py:43",
 }
-# 32-bit operations outside the tensor cores: the H100 SXM's published
-# float32 rate, 67 TFLOP/s, the nearest published rate
-SCALAR_OPS_PER_S = 67e12
+# 32-bit integer operations (compare, min/max, logic, add) outside the
+# tensor cores: they issue at 64 lanes per SM on the H100 SXM, so
+# 132 SMs x 64 lanes x 1.98 GHz (boost clock) = 16.7e12 a second. (67e12 is
+# the float32 rate counted as two FLOPs per fused multiply-add; it does not
+# apply to integer work.)
+INT_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def log(phase: str, msg: str) -> None:
@@ -110,7 +119,9 @@ def _plan(L: int, nwords: int, tuning: be.EngineTuning) -> list:
 def sweep_cases(tuning: be.EngineTuning):
     """(label, L, ncmp, nwords, sweep).
 
-    At L=20, for 1, 3 and 5 words: the first local sweep, a later local
+    At L=20, for 1, 2, 3, 4, 5 and 8 words (the register body, one
+    instantiation each for the main path's 1, 3 and 5) and 12 words (the
+    shared-memory body): the first local sweep, a later local
     sweep, the widest and the narrowest cross sweep, and forced-ascending
     variants. Then the cross sweeps of the main path's own plans that reach
     the top index bits (1 word at L=28, the bench workload; 3 words at L=24,
@@ -120,7 +131,8 @@ def sweep_cases(tuning: be.EngineTuning):
     """
     cases = []
     L = 20
-    for nwords, ncmp in ((1, 1), (3, 3), (5, 3)):
+    for nwords, ncmp in ((1, 1), (2, 2), (3, 3), (4, 2), (5, 3), (8, 3),
+                         (12, 3)):
         plan = _plan(L, nwords, tuning)
         local = [s for s in plan if s.g == 0]
         cross = [s for s in plan if s.g > 0]
@@ -456,23 +468,149 @@ def phase_breakdown(x: torch.Tensor, sort_ms: float, card: str) -> None:
         f"median of 3, CUDA events; card: {card}")
 
 
+def sweep_times(fn, reps: int = 3) -> tuple[list, list]:
+    """The sweeps that ``fn()`` launches and the device ms of each: CUDA
+    events around every ``run_sweep`` call of the network (which calls it
+    through the module), median of ``reps`` passes after a warm-up pass."""
+    real, sweeps, passes = be.run_sweep, [], []
+    for rep in range(reps + 1):
+        events = []
+
+        def timed(words, sweep, ncmp):
+            if not events:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[0].record()
+            out = real(words, sweep, ncmp)
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            if rep == 0:
+                sweeps.append(sweep)
+            return out
+
+        be.run_sweep = timed
+        try:
+            fn()
+        finally:
+            be.run_sweep = real
+        torch.cuda.synchronize()
+        if rep:
+            passes.append([a.elapsed_time(b) for a, b in zip(events, events[1:])])
+    return sweeps, [statistics.median(col) for col in zip(*passes)]
+
+
+def phase_pairs(card: str) -> None:
+    """sort_pairs u32+u32 (3 words) and u64+u64 (5 words) at 2**24, the
+    main path's pairs cases: the sort's median (phase 5) and its sweeps'
+    device time by group (phase 6)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    n = 1 << 24
+    for label, dtype, unsigned in (("u32+u32", torch.int32, torch.uint32),
+                                   ("u64+u64", torch.int64, torch.uint64)):
+        info = torch.iinfo(dtype)
+        keys, vals = (torch.randint(info.min, info.max, (n,), generator=gen,
+                                    device="cuda", dtype=dtype).view(unsigned)
+                      for _ in range(2))
+        sort_ms = cuda_ms(lambda: thrs.sort_pairs(keys, vals), 5)
+        log("5 timing", f"sort_pairs {label} n=2**24: {sort_ms:.3f} ms "
+            f"({n / sort_ms / 1e6:.4f} Gpairs/s); median of 5, CUDA events; "
+            f"card: {card}")
+        sweeps, med = sweep_times(lambda: thrs.sort_pairs(keys, vals))
+        groups = {"first local": [0],
+                  "later local": [i for i, s in enumerate(sweeps)
+                                  if s.g == 0][1:],
+                  "cross": [i for i, s in enumerate(sweeps) if s.g > 0]}
+        for name, idx in groups.items():
+            log("6 breakdown", f"sort_pairs {label} n=2**24 {name}: "
+                f"{len(idx)} sweeps, "
+                f"{sum(len(sweeps[i].substages) for i in idx)} substages, "
+                f"{sum(med[i] for i in idx):.3f} ms")
+        log("6 breakdown", f"sort_pairs {label} n=2**24 all {len(sweeps)} "
+            f"sweeps (tile 2**{sweeps[0].c + sweeps[0].g}): {sum(med):.3f} ms,"
+            f" {100 * sum(med) / sort_ms:.1f}% of the sort_pairs median; "
+            f"median of 3, CUDA events; card: {card}")
+        del keys, vals
+        torch.cuda.empty_cache()
+
+
+def bench_keys() -> torch.Tensor:
+    """The 2**28 random u32 keys of the sort_keys bench workload."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    return (torch.randint(-2**31, 2**31, (1 << 28,), generator=gen,
+                          device="cuda", dtype=torch.int64)
+            .to(torch.int32).view(torch.uint32))
+
+
+def timing_only() -> None:
+    """Phases 5 and 6 alone, on the package beside this file. To time
+    another tree's kernel with this script in one call (the parent commit,
+    or a variant of the kernel), copy the script into that tree and run
+    ``python3 -c 'import chip_smoke; chip_smoke.timing_only()'`` there."""
+    card = card_line()
+    print(card, flush=True)
+    x = bench_keys()
+    sort_ms = phase_timing(x, card)[2]
+    phase_breakdown(x, sort_ms, card)
+    del x
+    torch.cuda.empty_cache()
+    phase_pairs(card)
+
+
 # ---------------------------------------------------------------------------
 # phase 2: build every kernel, one nvcc each, all started together
 # ---------------------------------------------------------------------------
+
+
+def ptxas_report(text: str) -> list:
+    """(kernel, registers, spills) for each entry function in the output
+    of ``nvcc -Xptxas -v``; a template's word count is shown as <NW>."""
+    rows, name, regs, spill = [], None, "", ""
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            if name:
+                rows.append((name, regs, spill))
+            mangled, regs, spill = m.group(1), "", ""
+            m = re.match(r"_Z(\d+)(\w+)", mangled)
+            name = m.group(2)[:int(m.group(1))] if m else mangled
+            t = re.search(r"ILi(\d+)E", mangled)
+            name += f"<{t.group(1)}>" if t else ""
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            regs = ln.split(":", 1)[-1].strip()
+    if name:
+        rows.append((name, regs, spill))
+    return rows
+
+
+#: the sweep kernel's register-body instantiations on the main path (u32
+#: keys, u32 pairs, u64 pairs): ptxas must report no spill bytes for them
+NO_SPILL = ("sweep_registers<1>", "sweep_registers<3>", "sweep_registers<5>")
 
 
 def phase_build() -> None:
     t0 = time.perf_counter()
     cuda_lib.build(list(KERNELS))
     wall = time.perf_counter() - t0
+    spills = {}
     for lib in KERNELS:
         cuda_lib.load(lib)
         info = cuda_lib.BUILD_INFO[lib]
-        ptxas = [ln.strip() for ln in info["log"].splitlines()
-                 if "registers" in ln or "spill" in ln]
         log("2 build", f"{lib}: nvcc {info['seconds']:.3f} s -> "
-            f"{info['path']}; " + " | ".join(ptxas))
+            f"{info['path']}")
+        for name, regs, spill in ptxas_report(info["log"]):
+            log("2 build", f"{lib}: {name}: {regs}; {spill}")
+            spills[name] = spill
     log("2 build", f"{len(KERNELS)} libraries in {wall:.3f} s (parallel)")
+    for name in NO_SPILL:
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      spills.get(name, ""))
+        if m is None:
+            raise AssertionError(f"ptxas reported no spill line for {name}")
+        if m.groups() != ("0", "0"):
+            raise AssertionError(f"{name} spills: {spills[name]}")
 
 
 # ---------------------------------------------------------------------------
@@ -822,13 +960,11 @@ def main() -> int:
     log("4 main-path", f"all cases bit-exact in "
         f"{time.perf_counter() - t0:.3f} s, kernel launches={launches}")
 
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
-    x = torch.randint(-2**31, 2**31, (1 << 28,), generator=gen, device="cuda",
-                      dtype=torch.int64).to(torch.int32).view(torch.uint32)
+    x = bench_keys()
     kernel_ms, plain_ms, sort_ms, err = phase_timing(x, card)
     worst = max(worst, err)
     phase_breakdown(x, sort_ms, card)
+    phase_pairs(card)
 
     t0 = time.perf_counter()
     hist_err = phase_histogram()
@@ -852,8 +988,8 @@ def main() -> int:
 
     def entry(name, launches, err, ms, plain_ms, nbytes, ops, library_ms):
         """One kernel's report; its bound is the larger of its bytes at the
-        memory rate and its 32-bit operations at the scalar rate."""
-        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+        memory rate and its 32-bit operations at the integer rate."""
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / INT_OPS_PER_S
         return {"name": name, "route": "cuda",
                 "source": f"tinyhipradixsort_torch/csrc/{name}.cu",
                 "replaces": KERNELS[name], "launches": launches,
@@ -863,13 +999,14 @@ def main() -> int:
                 "library_ms": library_ms}
 
     # the timed sweep (phase 5): the first local sweep of the 2**28
-    # one-word network reads and writes every word once, and its
-    # compare-exchanges (substages x n/2) take less time at the scalar rate
+    # one-word network reads and writes every word once, and each of its
+    # compare-exchanges (substages x n/2) is two operations (min and max)
+    # on its one compare word
     sweep = _plan(28, 1, be.EngineTuning())[0]
     print(card, flush=True)
     print(json.dumps({"kernels": [
         entry("bitonic_sweep", launches, worst, kernel_ms, plain_ms,
-              2 * 4 * (1 << 28), len(sweep.substages) * (1 << 27), None),
+              2 * 4 * (1 << 28), 2 * len(sweep.substages) * (1 << 27), None),
         # digit extraction: a shift, a mask and an add per word
         entry("digit_histogram", hist_launches, hist_err, h["ms"],
               h["plain_ms"], h["bytes"], 3 * (1 << 28), h["library_ms"]),

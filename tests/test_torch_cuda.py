@@ -57,17 +57,19 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("nwords,ncmp", [(1, 1), (3, 3), (5, 3)])
-def test_kernel_matches_plain_version_on_every_sweep(cuda, nwords, ncmp):
-    L = 18
-    rng = np.random.default_rng(nwords)
+def _check_every_sweep(cuda, L, nwords, ncmp, forced,
+                       tuning=tbe.EngineTuning()):
+    """Every sweep of the main path's plan for 2**L tuples, plus
+    ``forced(plan, T)`` forced-ascending ones, through the kernel and through
+    the plain version. Word 0 takes 16 values, so tuples tie on it (and,
+    with ncmp=1, tie in full while their carries differ)."""
+    rng = np.random.default_rng(nwords * 100 + ncmp)
     words = [rng.integers(0, 16, size=1 << L, dtype=np.uint32)]
     words += [rng.integers(0, 2**32, size=1 << L, dtype=np.uint32)
               for _ in range(nwords - 1)]
-    tuning = tbe.EngineTuning()
     T = tbe._tile_bits_for(nwords, L, tuning)
     sweeps = tbe.plan_sweeps(L, T, T, g_max_cross=tuning.cross_g_max)
-    sweeps.append(dataclasses.replace(sweeps[1], forced_asc=T + 1))
+    sweeps += forced(sweeps, T)
     for sweep in sweeps:
         dev = [torch.from_numpy(w).view(torch.int32).to(cuda) for w in words]
         before = tbe.KERNEL_LAUNCHES
@@ -76,6 +78,61 @@ def test_kernel_matches_plain_version_on_every_sweep(cuda, nwords, ncmp):
         want = tbe.run_sweep_reference(dev, sweep, ncmp)
         for g, w in zip(got, want):
             assert torch.equal(g, w), sweep
+
+
+# 1-8 words take the register body (one instantiation per word count), 9 and
+# more the shared-memory body
+@pytest.mark.parametrize("nwords,ncmp", [(1, 1), (2, 2), (3, 1), (3, 3),
+                                         (4, 2), (5, 3), (8, 3), (9, 3)])
+def test_kernel_matches_plain_version_on_every_sweep(cuda, nwords, ncmp):
+    _check_every_sweep(
+        cuda, 18, nwords, ncmp,
+        lambda sweeps, T: [dataclasses.replace(sweeps[1], forced_asc=T + 1)])
+
+
+@pytest.mark.parametrize("nwords,ncmp", [(1, 1), (5, 3), (8, 3)])
+def test_kernel_matches_plain_version_at_the_smallest_tile(cuda, nwords,
+                                                            ncmp):
+    # L = 10: one local sweep of a 2**10 tile, the fewest threads a block has
+    _check_every_sweep(
+        cuda, 10, nwords, ncmp,
+        lambda sweeps, T: [dataclasses.replace(sweeps[0], forced_asc=4)])
+
+
+def test_register_body_takes_seven_words_at_the_largest_budget(cuda):
+    # the largest budget gives 7-word tuples the register body's largest
+    # tile (2**12); a 2**13 tile would need 1024 threads, and the kernel
+    # refuses it rather than send 7 words to the shared-memory body
+    tuning = tbe.EngineTuning(smem_tile_bytes=tbe.SMEM_MAX_BYTES)
+    _check_every_sweep(
+        cuda, 16, 7, 3,
+        lambda sweeps, T: [dataclasses.replace(sweeps[1], forced_asc=T + 1)],
+        tuning)
+    sweep = tbe.plan_sweeps(13, 13, 13)[0]
+    words = [torch.zeros(1 << 13, dtype=torch.int32, device=cuda)
+             for _ in range(7)]
+    with pytest.raises(RuntimeError):
+        tbe.run_sweep(words, sweep, 1)
+
+
+def test_wide_tuples_run_and_too_wide_ones_are_refused(cuda):
+    rng = np.random.default_rng(20)
+    n = 5000
+    cmp = [torch.from_numpy(rng.integers(0, 8, size=n, dtype=np.int32)),
+           torch.arange(n, dtype=torch.int32)]
+    carry = [torch.from_numpy(rng.integers(-2**31, 2**31, size=n,
+                                           dtype=np.int32)) for _ in range(18)]
+    want = tbe.sort_words(cmp, carry)
+    before = tbe.KERNEL_LAUNCHES
+    got = tbe.sort_words([w.to(cuda) for w in cmp], [w.to(cuda) for w in carry])
+    assert tbe.KERNEL_LAUNCHES > before
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g.cpu(), w)
+    sweep = tbe.plan_sweeps(10, 10, 10)[0]
+    words = [torch.zeros(1024, dtype=torch.int32, device=cuda)
+             for _ in range(tbe.MAX_WORDS + 1)]
+    with pytest.raises(ValueError):
+        tbe.run_sweep(words, sweep, 1)
 
 
 @pytest.mark.parametrize("dtype", [np.uint32, np.int32, np.float32,

@@ -34,6 +34,24 @@ def test_import_loads_no_jax_or_triton_and_builds_nothing():
     assert out.stdout.strip() == "clean"
 
 
+def test_a_reused_library_keeps_its_build_log(tmp_path, monkeypatch):
+    # a built library is reused without nvcc, and the output of the build
+    # that made it (ptxas spills, which chip_smoke.py checks) is read back
+    from tinyhipradixsort_torch.ops import cuda_lib
+    monkeypatch.setattr(cuda_lib, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(cuda_lib, "BUILD_INFO", {})
+    (tmp_path / "probe.cu").write_text("// a source\n")
+    so = cuda_lib.library_path("probe")
+    so.parent.mkdir()
+    so.write_bytes(b"")
+    text = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+    so.with_name(f"{so.name}.log").write_text(text)
+    cuda_lib.build(["probe"])
+    assert cuda_lib.BUILD_INFO["probe"] == {"path": str(so), "seconds": 0.0,
+                                            "log": text}
+
+
 def test_port_sources_never_import_jax():
     pkg = ROOT / "tinyhipradixsort_torch"
     for path in [*pkg.rglob("*.py"), ROOT / "chip_smoke.py"]:

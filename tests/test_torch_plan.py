@@ -74,6 +74,17 @@ def test_tile_bits_fit_shared_memory(nwords):
     assert {1: 15, 3: 14, 5: 13}.get(nwords, T) == T
 
 
+@pytest.mark.parametrize("nwords", range(1, 9))
+def test_tile_bits_stay_within_the_register_body(nwords):
+    # the largest budget reaches the register body's largest tile; only 7
+    # words would outgrow it (a 2**13 tile of 28 B tuples fits 227 KB)
+    tuning = tbe.EngineTuning(smem_tile_bytes=tbe.SMEM_MAX_BYTES)
+    T = tbe._tile_bits_for(nwords, 40, tuning)
+    assert T == tbe.REGISTER_TILE_BITS[nwords]
+    fits = (tbe.SMEM_MAX_BYTES // (4 * nwords)).bit_length() - 1
+    assert (fits > T) == (nwords == 7)
+
+
 def test_tile_bits_refuse_tuples_too_wide_for_a_block():
     with pytest.raises(ValueError):
         tbe._tile_bits_for(tbe.MAX_WORDS + 1, 20, tbe.EngineTuning())

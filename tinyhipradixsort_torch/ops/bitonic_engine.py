@@ -98,6 +98,9 @@ MIN_CHUNK_BITS = 5
 # kernel parameter-block capacities (mirror csrc/bitonic_sweep.cu)
 MAX_WORDS = 56
 MAX_SUBSTAGES = 120
+# largest tile exponent the kernel's register body (tuples of 1-8 words)
+# takes: 512 threads of 2**reg_bits(nwords) elements (csrc/bitonic_sweep.cu)
+REGISTER_TILE_BITS = {1: 15, 2: 14, 3: 14, 4: 13, 5: 13, 6: 13, 7: 12, 8: 12}
 
 
 @dataclass(frozen=True)
@@ -222,14 +225,16 @@ class EngineTuning:
 
 def _tile_bits_for(nwords: int, L: int, tuning: EngineTuning) -> int:
     """Largest tile exponent whose ``nwords`` words fit the shared-memory
-    budget (capped at ``L``)."""
+    budget (capped at ``L``, and at :data:`REGISTER_TILE_BITS`: with a
+    budget above 224 KB, 7-word tuples would otherwise get a 2**13 tile,
+    which the kernel refuses)."""
     budget = min(tuning.smem_tile_bytes, SMEM_MAX_BYTES) // (4 * nwords)
     T = budget.bit_length() - 1
     if T < MIN_L or nwords > MAX_WORDS:
         raise ValueError(
             f"{nwords} words do not fit a 2**{MIN_L}-element tile in "
             f"{tuning.smem_tile_bytes} bytes of shared memory")
-    return min(T, L)
+    return min(T, REGISTER_TILE_BITS.get(nwords, T), L)
 
 
 # ---------------------------------------------------------------------------

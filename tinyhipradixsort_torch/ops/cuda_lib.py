@@ -11,7 +11,9 @@ parallel. The library goes
 to ``tinyhipradixsort_torch/_build/`` under a name that carries the hash of
 the source and the flags, so an edited source is rebuilt and an unchanged one
 is reused. The build writes a temporary file and renames it, so processes
-that build at once do not see a half-written library.
+that build at once do not see a half-written library. nvcc's output (ptxas
+registers and spills per kernel function) is kept beside the library, in
+``<library>.log``, and read back when the library is reused.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
-#: per library: {"path", "seconds" (0.0 when reused), "log" (nvcc's output)}
+#: per library: {"path", "seconds" (0.0 when reused), "log" (nvcc's output,
+#: from the build that made the library)}
 BUILD_INFO: dict[str, dict] = {}
 
 
@@ -68,6 +71,8 @@ def build(names) -> None:
         so = library_path(name)
         BUILD_INFO[name] = {"path": str(so), "seconds": 0.0, "log": ""}
         if so.is_file():
+            log = so.with_name(f"{so.name}.log")
+            BUILD_INFO[name]["log"] = log.read_text() if log.is_file() else ""
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
@@ -87,6 +92,10 @@ def build(names) -> None:
             failed.append(f"nvcc failed ({proc.returncode}) building {name}:"
                           f"\n{info['log']}")
         else:
+            log = so.with_name(f"{so.name}.log")
+            tmp_log = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+            tmp_log.write_text(info["log"])
+            os.replace(tmp_log, log)
             os.replace(tmp, so)
     if failed:
         raise RuntimeError("\n".join(failed))
