@@ -16,21 +16,33 @@ Phases, one output line each (time, kernel launches, result):
    and spill bytes (kept beside a reused library); the main path's 1-, 3-
    and 5-word instantiations are required to spill nothing;
 3. kernel vs plain: sweeps of 1, 2, 3, 4, 5, 8 and 12 words (local, cross,
-   forced ascending) on 2**20 random words, and the cross sweeps over the top
-   index bits of the 2**28 one-word and 2**24 three-word networks, through
-   the CUDA kernel and through ``run_sweep_reference``, required bit-equal;
+   forced ascending) on 2**20 random words, the cross sweeps over the top
+   index bits of the 2**28 one-word and 2**24 three-word networks, the row
+   paths' sweeps (stage r forced ascending, on b_pad * 2**r words, tiles
+   spanning several rows or lying inside one) and the merges' sweeps of
+   stage log2 m alone, through the CUDA kernel and through
+   ``run_sweep_reference``, required bit-equal;
 4. main path: the public entry points at real sizes (sort_keys u32 at 2**28,
    the bench workload; pairs at 2**24 and 2**16; f32 with NaN and -0.0;
-   u64 pairs; u32 at 160,000,000; a descending, a bit-window and a
-   sort_indices case), each bit-exact against a numpy stable-sort oracle on
-   the host, each required to launch the kernel;
+   u64 pairs; u32 keys and u32+u32 pairs at 160,000,000 through the
+   segmented route; a descending, a bit-window and a sort_indices case;
+   2-D rows 4096x4096 keys, 16384x1024 pairs and 4096x1040 keys (the
+   row-segmented route); segment_ids= of 1000 segments on 2**24 pairs;
+   f16 and bf16 keys with NaN payloads and -0.0; stable=False pairs at
+   2**24, which must sort 2 words), each bit-exact against a numpy oracle
+   on the host, each required to launch the kernel and to take its route;
 5. timing: sort_keys u32 at 2**28 (CUDA events, median of 5 after a
    warm-up) beside torch.sort(stable=True) as the yardstick, and the first
    sweep of its network through the kernel beside its plain version, each
-   run on a fresh copy of the random keys and required bit-equal; and
-   sort_pairs u32+u32 and u64+u64 at 2**24;
-6. breakdown: the device time of each of that network's sweeps, and of the
-   two pairs sorts' sweeps by group;
+   run on a fresh copy of the random keys and required bit-equal;
+   sort_pairs u32+u32 and u64+u64 at 2**24; 160,000,000 u32 keys through
+   the segmented and the padded route beside torch.sort; the three row
+   cells beside torch.sort(dim=-1) and the counting engine; stable=False
+   beside stable=True pairs at 2**24;
+6. breakdown: the device time of each of that network's sweeps, of the
+   two pairs sorts' sweeps by group, and of the 160M segmented sort by
+   part (prefix network, recursive remainder, dense compare-exchange
+   levels, merge sweeps, the rest);
 7. histogram kernel vs plain: ``digit_histogram`` through the kernel and
    through ``digit_histogram_reference`` (u32 at 2**20 and 2**28, shifts
    0/8/16/24, tiles 8192 and 2048, widths 1, 2, 5 and 12, an odd tile, an n
@@ -79,6 +91,7 @@ from tinyhipradixsort_torch.ops import bitonic_engine as be  # noqa: E402
 from tinyhipradixsort_torch.ops import counting_engine  # noqa: E402
 from tinyhipradixsort_torch.ops import cuda_lib  # noqa: E402
 from tinyhipradixsort_torch.ops import histogram as hist  # noqa: E402
+from tinyhipradixsort_torch.ops import network_engine  # noqa: E402
 from tinyhipradixsort_torch.tools import H100_BYTES_PER_S  # noqa: E402
 from tinyhipradixsort_torch.tools import card as card_line  # noqa: E402
 from tinyhipradixsort_torch.tools import cuda_ms  # noqa: E402
@@ -186,13 +199,51 @@ def random_words(nwords: int, n: int, gen: torch.Generator) -> list:
     return words
 
 
+def row_sweep_cases(tuning: be.EngineTuning):
+    """(label, word length, ncmp, nwords, sweep): the sweeps of the row paths
+    and of the merges. Rows: stages 1..r, stage r forced ascending, on
+    ``b_pad * 2**r`` words (no power of two), for rows of 2**7 one-word
+    tuples and 2**10 three-word tuples (tiles spanning 8 rows each) and 3
+    rows of 2**16 (tiles inside a row, so cross sweeps); and the same rows'
+    merges, stage r alone. Flat merges: stage log2 m alone of the 2**27
+    one-word prefix and of a 2**24 three-word one (``_merge_pow2``), its
+    widest cross sweep and its local sweep."""
+    cases = []
+    for B, r, nwords, ncmp in ((5000, 7, 1, 1), (3000, 10, 3, 2),
+                               (3, 16, 1, 1)):
+        T, b_pad = be._row_plan(B, r, nwords, tuning)
+        for kind, stages in (("sort", range(1, r + 1)), ("merge", [r])):
+            plan = be.plan_sweeps(max(T, r), T, T, stages, r,
+                                  g_max_cross=tuning.cross_g_max)
+            cross = [s for s in plan if s.g > 0]
+            picks = {plan[0]: "first", plan[-1]: "last"}
+            if cross:
+                picks.setdefault(max(cross, key=lambda s: s.g),
+                                 "cross-widest")
+            for s, name in picks.items():
+                cases.append((f"rows {B}x2**{r} {nwords}w (tile 2**{T}, "
+                              f"b_pad {b_pad})/{kind}/{name}", b_pad << r,
+                              ncmp, nwords, s))
+    for m_bits, nwords, ncmp in ((27, 1, 1), (24, 3, 2)):
+        T = be._tile_bits_for(nwords, m_bits, tuning)
+        plan = be.plan_sweeps(m_bits, T, T, [m_bits],
+                              g_max_cross=tuning.cross_g_max)
+        for name, s in (("cross-widest", max(plan, key=lambda s: s.g)),
+                        ("local", plan[-1])):
+            cases.append((f"merge 2**{m_bits} {nwords}w/{name}", 1 << m_bits,
+                          ncmp, nwords, s))
+    return cases
+
+
 def phase_sweeps() -> int:
     tuning = be.EngineTuning()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     worst = 0
-    for label, L, ncmp, nwords, sweep in sweep_cases(tuning):
-        words = random_words(nwords, 1 << L, gen)
+    cases = [(label, 1 << L, ncmp, nwords, sweep)
+             for label, L, ncmp, nwords, sweep in sweep_cases(tuning)]
+    for label, n, ncmp, nwords, sweep in cases + row_sweep_cases(tuning):
+        words = random_words(nwords, n, gen)
         t0 = time.perf_counter()
         got = be.run_sweep([w.clone() for w in words], sweep, ncmp)
         torch.cuda.synchronize()
@@ -332,39 +383,188 @@ def main_path_cases():
                                   and np.array_equal(got, _perm(x)))
         return run
 
+    def rows(B, n, with_values=False):
+        def run(rng):
+            x = rng.integers(0, 2**32, size=(B, n), dtype=np.uint32)
+            v = rng.integers(0, 2**32, size=(B, n), dtype=np.uint32)
+            xd, vd = torch.from_numpy(x).cuda(), torch.from_numpy(v).cuda()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = (thrs.sort_pairs(xd, vd) if with_values
+                   else (thrs.sort_keys(xd),))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = [o.cpu().numpy() for o in out]
+            del xd, vd, out
+
+            def check():
+                p = np.argsort(x, axis=1, kind="stable")
+                ok = np.array_equal(got[0], np.take_along_axis(x, p, 1))
+                return ok and (not with_values or np.array_equal(
+                    got[1], np.take_along_axis(v, p, 1)))
+            return secs, check
+        return run
+
+    def segments(n, nseg):
+        def run(rng):
+            x = rng.integers(0, 2**32, size=n, dtype=np.uint32)
+            v = rng.integers(0, 2**32, size=n, dtype=np.uint32)
+            offs = np.sort(rng.integers(0, n, size=nseg)).astype(np.int32)
+            xd, vd = torch.from_numpy(x).cuda(), torch.from_numpy(v).cuda()
+            seg = thrs.segment_ids_from_offsets(torch.from_numpy(offs).cuda(),
+                                                n)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            k, vals = thrs.sort_pairs(xd, vd, segment_ids=seg)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            gk, gv, sid = k.cpu().numpy(), vals.cpu().numpy(), seg.cpu().numpy()
+            del xd, vd, seg, k, vals
+
+            def check():
+                want = np.searchsorted(offs, np.arange(n), side="right") - \
+                    np.searchsorted(offs, 0, side="right")
+                p = np.lexsort((x, want))
+                return (np.array_equal(sid, want) and np.array_equal(gk, x[p])
+                        and np.array_equal(gv, v[p]))
+            return secs, check
+        return run
+
+    def keys16(tdtype, n):
+        def run(rng):
+            u = _raw16(rng, n)
+            xd = torch.from_numpy(u.view(np.int16)).cuda().view(tdtype)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = thrs.sort_keys(xd)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = out.view(torch.int16).cpu().numpy().view(np.uint16)
+            del xd, out
+            return secs, lambda: np.array_equal(got, u[_perm(u, kind="f")])
+        return run
+
+    def unstable_pairs(n):
+        def run(rng):
+            x = rng.integers(0, 1 << 16, size=n, dtype=np.uint32)  # ties
+            v = np.arange(n, dtype=np.uint32)
+            xd, vd = torch.from_numpy(x).cuda(), torch.from_numpy(v).cuda()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            k, vals = thrs.sort_pairs(xd, vd, stable=False)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            gk, gv = k.cpu().numpy(), vals.cpu().numpy()
+            del xd, vd, k, vals
+
+            def check():
+                # keys in order; the payloads a permutation that carries
+                # each key (v is the index, so x[gv] must be the keys)
+                return (np.array_equal(gk, np.sort(x))
+                        and np.array_equal(np.sort(gv), v)
+                        and np.array_equal(x[gv], gk))
+            return secs, check
+        return run
+
+    # (label, run, the engine route the case must take, the words sorted)
     return [
-        ("sort_keys u32 n=2**28 (bench workload)", keys_only(np.uint32, 1 << 28)),
-        ("sort_pairs u32+u32 n=2**24", pairs(np.uint32, 1 << 24)),
-        ("sort_pairs u32+u32 n=2**16 (graft entry)", pairs(np.uint32, 1 << 16)),
+        ("sort_keys u32 n=2**28 (bench workload)",
+         keys_only(np.uint32, 1 << 28), "padded", None),
+        ("sort_pairs u32+u32 n=2**24", pairs(np.uint32, 1 << 24),
+         "padded", None),
+        ("sort_pairs u32+u32 n=2**16 (graft entry)", pairs(np.uint32, 1 << 16),
+         "padded", None),
         ("sort_keys f32 NaN/-0.0/negatives n=2**22",
-         keys_only(np.float32, 1 << 22, specials=True)),
-        ("sort_pairs u64+u64 n=2**24", pairs(np.uint64, 1 << 24)),
+         keys_only(np.float32, 1 << 22, specials=True), "padded", None),
+        ("sort_pairs u64+u64 n=2**24", pairs(np.uint64, 1 << 24),
+         "padded", None),
         ("sort_keys u32 n=160,000,000 (reference main.cpp:105)",
-         keys_only(np.uint32, 160_000_000)),
+         keys_only(np.uint32, 160_000_000), "segmented", None),
+        ("sort_pairs u32+u32 n=160,000,000",
+         pairs(np.uint32, 160_000_000), "segmented", None),
         ("sort_pairs f64+u32 descending NaN/-0.0 n=2**20",
-         pairs(np.float64, 1 << 20, specials=True, order="descending")),
+         pairs(np.float64, 1 << 20, specials=True, order="descending"),
+         "padded", None),
         ("sort_pairs u32+u32 window [8,16) n=2**22",
-         pairs(np.uint32, 1 << 22, start_bit=8, end_bit=16)),
-        ("sort_indices i32 n=2**22", indices(np.int32, 1 << 22)),
+         pairs(np.uint32, 1 << 22, start_bit=8, end_bit=16), "padded", None),
+        ("sort_indices i32 n=2**22", indices(np.int32, 1 << 22),
+         "padded", None),
+        ("sort_keys u32 rows 4096x4096", rows(4096, 4096), "rows", None),
+        ("sort_pairs u32+u32 rows 16384x1024", rows(16384, 1024, True),
+         "rows", None),
+        ("sort_keys u32 rows 4096x1040 (non-power-of-two rows)",
+         rows(4096, 1040), "rows-segmented", None),
+        ("sort_pairs u32+u32 segment_ids_from_offsets (1000 segments) "
+         "n=2**24", segments(1 << 24, 1000), "padded", 4),
+        ("sort_keys f16 NaN payloads/-0.0 n=2**22",
+         keys16(torch.float16, 1 << 22), "padded", None),
+        ("sort_keys bf16 NaN payloads/-0.0 n=2**22",
+         keys16(torch.bfloat16, 1 << 22), "padded", None),
+        ("sort_pairs u32+u32 stable=False n=2**24", unstable_pairs(1 << 24),
+         "padded", 2),
     ]
+
+
+#: the engine's entry points whose calls phase 4 records, to check each
+#: case's route (and the words a sort moved)
+ROUTES = ("sort_words", "sort_words_rows", "_sort_segmented",
+          "_sort_segmented_rows")
+
+
+def record_routes(calls: list):
+    """Wrap the engine entries of :data:`ROUTES` to append (name, words)
+    for each call to ``calls``; returns a function that unwraps them."""
+    real = {name: getattr(be, name) for name in ROUTES}
+
+    def wrap(name):
+        def recorded(*args, **kw):
+            words = (len(args[0]) + len(args[1]) if name.startswith("sort")
+                     else len(args[0]))
+            calls.append((name, words))
+            return real[name](*args, **kw)
+        return recorded
+
+    for name in ROUTES:
+        setattr(be, name, wrap(name))
+    return lambda: [setattr(be, name, fn) for name, fn in real.items()]
+
+
+def route_of(calls: list) -> str:
+    names = {name for name, _ in calls}
+    if "_sort_segmented_rows" in names:
+        return "rows-segmented"
+    if "sort_words_rows" in names:
+        return "rows"
+    return "segmented" if "_sort_segmented" in names else "padded"
 
 
 def phase_main_path() -> int:
     rng = np.random.default_rng(SEED)
     be.KERNEL_LAUNCHES = 0
-    for label, run in main_path_cases():
+    for label, run, route, nwords in main_path_cases():
         before = be.KERNEL_LAUNCHES
-        secs, check = run(rng)
+        calls = []
+        restore = record_routes(calls)
+        try:
+            secs, check = run(rng)
+        finally:
+            restore()
         launches = be.KERNEL_LAUNCHES - before
         ok = check()
+        took = route_of(calls)
+        moved = calls[0][1]
         log("4 main-path", f"{label}: {secs * 1e3:.3f} ms (host clock, "
-            f"synchronized) launches={launches} "
+            f"synchronized) launches={launches} route={took} words={moved} "
             f"{'bit-exact' if ok else 'MISMATCH'} vs numpy oracle")
         torch.cuda.empty_cache()
         if not ok:
             raise AssertionError(f"main path output wrong: {label}")
         if launches == 0:
             raise AssertionError(f"main path did not launch the kernel: {label}")
+        if took != route:
+            raise AssertionError(f"{label}: took the {took} route, not {route}")
+        if nwords is not None and moved != nwords:
+            raise AssertionError(f"{label}: sorted {moved} words, not {nwords}")
     return be.KERNEL_LAUNCHES
 
 
@@ -531,6 +731,195 @@ def phase_pairs(card: str) -> None:
             f"median of 3, CUDA events; card: {card}")
         del keys, vals
         torch.cuda.empty_cache()
+
+
+def _random_u32(n, gen: torch.Generator, shape=None) -> torch.Tensor:
+    """n random u32 keys on the card (shaped ``shape`` if given)."""
+    x = torch.randint(-2**31, 2**31, (n,), generator=gen, device="cuda",
+                      dtype=torch.int64).to(torch.int32).view(torch.uint32)
+    return x if shape is None else x.view(shape)
+
+
+def _flipped(x: torch.Tensor) -> torch.Tensor:
+    """int32 with the sign bit flipped: orders as the unsigned keys do."""
+    return x.view(torch.int32) ^ -2**31
+
+
+def _sort_keys_tuned(x: torch.Tensor, tuning: be.EngineTuning):
+    """sort_keys of u32 keys (1-D, or 2-D rows) through the engine with
+    ``tuning`` (the public API reads the THRS_* knobs instead)."""
+    return network_engine.sort_semantics(
+        x, [], descending=False, start_bit=0, end_bit=32, want=("keys",),
+        tuning=tuning)[0]
+
+
+def phase_nonpow2_timing(card: str) -> tuple[torch.Tensor, float]:
+    """160,000,000 u32 keys (reference main.cpp:105) through the segmented
+    route (the default tuning), the padded route (seg_pad_waste=1.0) and
+    torch.sort(stable=True). The sort never writes its input, so every run
+    sorts the same untouched keys."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 160)
+    n = 160_000_000
+    x = _random_u32(n, gen)
+    seg_t, pad_t = be.EngineTuning(), be.EngineTuning(seg_pad_waste=1.0)
+    seg_ms = cuda_ms(lambda: _sort_keys_tuned(x, seg_t), 5)
+    pad_ms = cuda_ms(lambda: _sort_keys_tuned(x, pad_t), 5)
+    signed = _flipped(x)
+    yard_ms = cuda_ms(lambda: torch.sort(signed, stable=True), 5)
+    same = torch.equal(_sort_keys_tuned(x, seg_t), _sort_keys_tuned(x, pad_t))
+    del signed
+    torch.cuda.empty_cache()
+    log("5 timing", f"sort_keys u32 n=160,000,000: segmented route "
+        f"{seg_ms:.3f} ms ({n / seg_ms / 1e6:.4f} Gkeys/s), padded route "
+        f"(seg_pad_waste=1.0, 2**28) {pad_ms:.3f} ms, torch.sort(stable=True)"
+        f" {yard_ms:.3f} ms; routes {'bit-equal' if same else 'MISMATCH'}; "
+        f"median of 5, CUDA events; card: {card}")
+    if not same:
+        raise AssertionError("segmented and padded routes disagree at 160M")
+    # around the routing threshold (seg_pad_waste=0.15): both routes at n
+    # that pad 2**28 with a waste of 5-25%
+    seg_all = be.EngineTuning(seg_pad_waste=0.0)
+    for waste in (0.05, 0.10, 0.15, 0.20, 0.25):
+        m = int((1 << 28) * (1.0 - waste))
+        y = _random_u32(m, gen)
+        s_ms = cuda_ms(lambda: _sort_keys_tuned(y, seg_all), 5)
+        p_ms = cuda_ms(lambda: _sort_keys_tuned(y, pad_t), 5)
+        log("5 timing", f"sort_keys u32 n={m} (waste {waste:.2f} of 2**28): "
+            f"segmented {s_ms:.3f} ms, padded {p_ms:.3f} ms "
+            f"({p_ms / s_ms:.3f}x); median of 5, CUDA events; card: {card}")
+        del y
+        torch.cuda.empty_cache()
+    return x, seg_ms
+
+
+def phase_rows_timing(card: str) -> None:
+    """The row cells beside torch.sort(dim=-1, stable=True) (with a gather
+    of the values for pairs) and the counting engine."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 4096)
+    for B, n, with_values in ((4096, 4096, False), (16384, 1024, True),
+                              (4096, 1040, False)):
+        x = _random_u32(B * n, gen, (B, n))
+        v = _random_u32(B * n, gen, (B, n))
+        signed = _flipped(x)
+        if with_values:
+            ms = cuda_ms(lambda: thrs.sort_pairs(x, v), 5)
+            count_ms = cuda_ms(
+                lambda: thrs.sort_pairs(x, v, method="counting"), 5)
+
+            def library():
+                _, idx = torch.sort(signed, dim=-1, stable=True)
+                return torch.take_along_dim(v, idx, dim=-1)
+        else:
+            ms = cuda_ms(lambda: thrs.sort_keys(x), 5)
+            count_ms = cuda_ms(lambda: thrs.sort_keys(x, method="counting"), 5)
+
+            def library():
+                return torch.sort(signed, dim=-1, stable=True)
+        lib_ms = cuda_ms(library, 5)
+        padded = ""
+        if n & (n - 1):
+            # the same rows padded to 2**r in one network (row_seg_waste=1.0)
+            pad_ms = cuda_ms(lambda: _sort_keys_tuned(
+                x, be.EngineTuning(row_seg_waste=1.0)), 5)
+            padded = f", padded rows (row_seg_waste=1.0) {pad_ms:.3f} ms"
+        what = "sort_pairs u32+u32" if with_values else "sort_keys u32"
+        log("5 timing", f"{what} rows {B}x{n}: bitonic {ms:.3f} ms "
+            f"({B * n / ms / 1e6:.4f} Gkeys/s){padded}, torch.sort(dim=-1, "
+            f"stable=True){' + take_along_dim' if with_values else ''} "
+            f"{lib_ms:.3f} ms, counting {count_ms:.3f} ms; median of 5, CUDA "
+            f"events; card: {card}")
+        del x, v, signed
+        torch.cuda.empty_cache()
+
+
+def phase_unstable_timing(card: str) -> None:
+    """sort_pairs u32+u32 at 2**24, stable=False (2 words) beside
+    stable=True (3 words)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 24)
+    n = 1 << 24
+    keys, vals = _random_u32(n, gen), _random_u32(n, gen)
+    fast = cuda_ms(lambda: thrs.sort_pairs(keys, vals, stable=False), 5)
+    stable = cuda_ms(lambda: thrs.sort_pairs(keys, vals), 5)
+    log("5 timing", f"sort_pairs u32+u32 n=2**24: stable=False {fast:.3f} ms,"
+        f" stable=True {stable:.3f} ms ({stable / fast:.3f}x); median of 5, "
+        f"CUDA events; card: {card}")
+    del keys, vals
+    torch.cuda.empty_cache()
+
+
+#: phase 6's parts of the segmented sort: the engine function whose
+#: outermost calls make each part
+SEG_PARTS = {"_run_network": "prefix network",
+             "_sort_flat": "recursive remainder",
+             "_ce_pair": "dense _ce_pair levels",
+             "_merge_pow2": "_merge_pow2 sweeps"}
+
+
+def phase_segmented_breakdown(x: torch.Tensor, seg_ms: float,
+                              card: str) -> None:
+    """Device time of the 160M segmented sort_keys by part: CUDA events
+    around the outermost call of each engine function of
+    :data:`SEG_PARTS` (the depth-0 ``_sort_flat`` is the sort itself and
+    is not a part); the rest (the first copy, the flip, the key transform,
+    the concatenations and the sentinel blocks) is the sort's time less
+    the parts'. Median of 3 passes after a warm-up."""
+    real = {name: getattr(be, name) for name in SEG_PARTS}
+    tuning = be.EngineTuning()
+    passes, sizes = [], []
+    for rep in range(4):
+        spans, active = [], [0]
+
+        def wrap(name):
+            def timed(*args, **kw):
+                if active[0] or (name == "_sort_flat" and args[3] == 0):
+                    return real[name](*args, **kw)
+                active[0] += 1
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                try:
+                    out = real[name](*args, **kw)
+                finally:
+                    active[0] -= 1
+                b.record()
+                spans.append((name, int(args[0][0].shape[0]), a, b))
+                return out
+            return timed
+
+        for name in SEG_PARTS:
+            setattr(be, name, wrap(name))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        try:
+            start.record()
+            _sort_keys_tuned(x, tuning)
+            end.record()
+        finally:
+            for name, fn in real.items():
+                setattr(be, name, fn)
+        torch.cuda.synchronize()
+        if rep:
+            passes.append([a.elapsed_time(b) for _, _, a, b in spans]
+                          + [start.elapsed_time(end)])
+        else:
+            sizes = [(name, n) for name, n, _, _ in spans]
+    med = [statistics.median(col) for col in zip(*passes)]
+    total = med[-1]
+    by_part = {}
+    for (name, n), ms in zip(sizes, med):
+        log("6 breakdown", f"160M segmented: {SEG_PARTS[name]} on {n} "
+            f"elements: {ms:.3f} ms")
+        by_part[SEG_PARTS[name]] = by_part.get(SEG_PARTS[name], 0.0) + ms
+    by_part["copies, flip, concatenations, key transform (the rest)"] = (
+        total - sum(by_part.values()))
+    for part, ms in by_part.items():
+        log("6 breakdown", f"160M segmented: {part}: {ms:.3f} ms "
+            f"({100 * ms / total:.1f}%)")
+    log("6 breakdown", f"160M segmented: all {total:.3f} ms (phase 5's median"
+        f" {seg_ms:.3f} ms); median of 3, CUDA events; card: {card}")
 
 
 def bench_keys() -> torch.Tensor:
@@ -965,6 +1354,17 @@ def main() -> int:
     worst = max(worst, err)
     phase_breakdown(x, sort_ms, card)
     phase_pairs(card)
+    del x
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    x160, seg_ms = phase_nonpow2_timing(card)
+    phase_segmented_breakdown(x160, seg_ms, card)
+    del x160
+    torch.cuda.empty_cache()
+    phase_rows_timing(card)
+    phase_unstable_timing(card)
+    log("6 breakdown", f"new timing phases in {time.perf_counter() - t0:.3f} s")
+    x = bench_keys()
 
     t0 = time.perf_counter()
     hist_err = phase_histogram()

@@ -159,6 +159,80 @@ def test_sorts_on_the_card_match_the_oracle(cuda, dtype):
         np.testing.assert_array_equal(_bits(xd), _bits(x))
 
 
+@pytest.mark.parametrize("nwords,ncmp,B,r", [
+    (1, 1, 3, 10), (3, 2, 20, 7), (5, 3, 6, 14), (2, 2, 70, 5)])
+def test_kernel_matches_plain_version_on_row_networks(cuda, nwords, ncmp, B,
+                                                      r):
+    # the row paths' shapes: stages 1..r (a row sort) and stage r alone (a
+    # row merge), stage r forced ascending, on b_pad * 2**r words, which is
+    # no power of two; the block count comes from the word length
+    rng = np.random.default_rng(B * 100 + r)
+    tuning = tbe.EngineTuning()
+    T, b_pad = tbe._row_plan(B, r, nwords, tuning)
+    n = b_pad << r
+    assert n & (n - 1)
+    words = [rng.integers(0, 16, size=n, dtype=np.uint32)]
+    words += [rng.integers(0, 2**32, size=n, dtype=np.uint32)
+              for _ in range(nwords - 1)]
+    dev = [torch.from_numpy(w).view(torch.int32).to(cuda) for w in words]
+    for stages in (range(1, r + 1), [r]):
+        before = tbe.KERNEL_LAUNCHES
+        got = tbe._run_network([w.clone() for w in dev], ncmp, max(T, r),
+                               tuning, stages=stages, forced_asc=r,
+                               tile_bits=T)
+        assert tbe.KERNEL_LAUNCHES > before
+        want = [w.clone() for w in dev]
+        for sweep in tbe.plan_sweeps(max(T, r), T, T, stages, r,
+                                     g_max_cross=tuning.cross_g_max):
+            want = tbe.run_sweep_reference(want, sweep, ncmp)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (stages, T, b_pad)
+
+
+def test_new_bitonic_paths_on_the_card(cuda):
+    # the paths of the segmented route, the rows, segment_ids=, 16-bit keys
+    # and stable=False, each against the same call on CPU tensors (the
+    # plain version) and each launching the kernel
+    rng = np.random.default_rng(21)
+    x = rng.integers(0, 2**32, size=150_001, dtype=np.uint32)
+    rows = rng.integers(0, 2**32, size=(64, 1040), dtype=np.uint32)
+    raw = rng.integers(0, 2**16, size=70_000, dtype=np.uint16)
+    seg = np.sort(rng.integers(0, 100, size=150_001)).astype(np.int32)
+    pay = rng.integers(0, 2**32, size=150_001, dtype=np.uint32)
+    calls = [
+        ("segmented keys", lambda d: tthrs.sort_keys(d(x))),
+        ("segmented pairs", lambda d: tthrs.sort_pairs(d(x), d(pay))),
+        ("rows 64x1040", lambda d: tthrs.sort_pairs(d(rows), d(rows))),
+        ("rows 64x1024", lambda d: tthrs.sort_keys(d(rows[:, :1024]))),
+        ("segment_ids", lambda d: tthrs.sort_indices(d(x),
+                                                     segment_ids=d(seg))),
+        ("f16", lambda d: tthrs.sort_keys(d(raw.view(np.int16))
+                                          .view(torch.float16))),
+        ("bf16 pairs", lambda d: tthrs.sort_pairs(
+            d(raw.view(np.int16)).view(torch.bfloat16), d(raw))),
+    ]
+    for label, fn in calls:
+        before = tbe.KERNEL_LAUNCHES
+        got = fn(lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda))
+        assert tbe.KERNEL_LAUNCHES > before, label
+        want = fn(lambda a: torch.from_numpy(np.ascontiguousarray(a)))
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            assert g.is_cuda, label
+            signed = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+                g.dtype.itemsize]
+            assert torch.equal(g.cpu().view(signed), w.view(signed)), label
+    # stable=False at a power of two: keys sorted, values a permutation
+    keys = x[:1 << 16] % 97
+    k, v = tthrs.sort_pairs(torch.from_numpy(keys).to(cuda),
+                            torch.arange(1 << 16, device=cuda), stable=False)
+    np.testing.assert_array_equal(_bits(k), np.sort(keys))
+    perm = v.cpu().numpy()
+    np.testing.assert_array_equal(keys[perm], np.sort(keys))
+    np.testing.assert_array_equal(np.sort(perm), np.arange(1 << 16))
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     sweep = tbe.plan_sweeps(10, 10, 10)[0]
     good = torch.zeros(1024, dtype=torch.int32, device=cuda)

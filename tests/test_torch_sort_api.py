@@ -126,35 +126,45 @@ def test_port_against_numpy_oracles(kind, dtype, n, desc):
 
 
 def test_refuses_what_later_slices_port():
-    # the bitonic engine ("auto" too) refuses 2-D keys, segment_ids= and
-    # 16-bit keys until its later slices; the portable engines sort them
-    x = torch.arange(64, dtype=torch.int32)
-    for method in ("auto", "bitonic"):
-        with pytest.raises(NotImplementedError):
-            tthrs.sort_keys(x.reshape(8, 8), method=method)
-        with pytest.raises(NotImplementedError):
-            tthrs.sort_keys(x, segment_ids=torch.zeros(64, dtype=torch.int32),
-                            method=method)
-        with pytest.raises(NotImplementedError):
-            tthrs.sort_keys(x.to(torch.int16), method=method)
-    for method in ("argsort", "lsd_argsort", "counting"):
-        k, v = tthrs.sort_pairs(x.flip(0), x, method=method)
-        assert_bits_equal(k, np.arange(64, dtype=np.int32))
-        assert_bits_equal(v, np.arange(64, dtype=np.int32)[::-1])
+    # the bitonic engine ("auto" too) sorts 2-D keys, segment_ids= and
+    # 16-bit keys bit-exactly as the portable engines do; what is refused
+    # is a bad argument
+    rng = np.random.default_rng(RNG_SEED + 3)
+    x = torch.from_numpy(rng.integers(-2**31, 2**31, size=1200,
+                                      dtype=np.int64).astype(np.int32))
+    seg = torch.from_numpy(rng.integers(0, 7, size=1200).astype(np.int16))
+    cases = [
+        ("2-D", dict(keys=x.reshape(6, 200))),
+        ("segment_ids", dict(keys=x, segment_ids=seg)),
+        ("int16", dict(keys=x.to(torch.int16))),
+        ("bfloat16", dict(keys=(x >> 16).to(torch.int16).view(torch.bfloat16))),
+    ]
+    vals = torch.arange(1200, dtype=torch.int32)
+    for label, kw in cases:
+        v = vals.reshape(kw["keys"].shape)
+        want = tthrs.sort_pairs(values=v, method="argsort", **kw)
+        for method in ("auto", "bitonic", "counting", "lsd_argsort"):
+            got = tthrs.sort_pairs(values=v, method=method, **kw)
+            for g, w in zip(got, want):
+                assert_bits_equal(g, w, f"{label} {method}")
+        assert_bits_equal(tthrs.sort_indices(method="bitonic", **kw),
+                          tthrs.sort_indices(method="argsort", **kw), label)
     with pytest.raises(ValueError):
         tthrs.sort_keys(x, method="pallas")
-    with pytest.raises(NotImplementedError):
-        network_engine.sort_semantics(
-            x.reshape(8, 8), [], descending=False, start_bit=0, end_bit=32,
-            want=("keys",))
-    with pytest.raises(NotImplementedError):
-        network_engine.sort_semantics(
-            x, [], descending=False, start_bit=0, end_bit=32, want=("keys",),
-            seg_bits=x)
+    with pytest.raises(ValueError):
+        tthrs.sort_keys(x.reshape(2, 3, 200))
+    with pytest.raises(ValueError):
+        tthrs.sort_keys(x, segment_ids=seg[:100])
+    with pytest.raises(TypeError):
+        tthrs.sort_keys(x, segment_ids=seg.to(torch.float32))
     with pytest.raises(ValueError):
         tthrs.sort_keys(x, start_bit=8, end_bit=40)
     with pytest.raises(ValueError):
         tthrs.sort_pairs(x, torch.arange(63))
+    with pytest.raises(ValueError):
+        network_engine.sort_semantics(
+            x.reshape(6, 200), [], descending=False, start_bit=0, end_bit=32,
+            want=("indices",), tuning=tbe.EngineTuning(smem_tile_bytes=1024))
 
 
 def test_unstable_and_donate_keep_the_stable_result():

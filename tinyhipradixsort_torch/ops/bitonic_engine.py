@@ -45,6 +45,24 @@ apply): a tile of ``2**T`` elements of ``nwords`` words takes
 ``nwords * 4 * 2**T <= EngineTuning.smem_tile_bytes`` (200 KB): ``T = 15``
 for 1 word, 14 for 3 words, 13 for 5 words. The network always plans with
 storage rotation 0.
+
+Routes (all of them end in the same sweep kernel)
+-------------------------------------------------
+* :func:`sort_words`, power of two or little padding: the whole network on
+  fresh buffers padded to ``2**L``.
+* :func:`sort_words`, other ``n``: :func:`_sort_segmented`, the largest
+  power-of-two prefix by the full network, the rest recursively, and one
+  truncated merge (:func:`_merge_sorted_runs`): dense compare-exchange
+  levels in torch (:func:`_ce_pair`) and merge sweeps of one stage
+  (:func:`_merge_pow2`), with no padding.
+* :func:`sort_words_rows`: rows padded to ``2**r`` and the network of
+  stages ``1..r`` with stage ``r`` forced ascending, on a word length of
+  ``b_pad * 2**r`` (a batch padded to a tile multiple, :func:`_row_plan`);
+  long non-power-of-two rows take :func:`_sort_segmented_rows`.
+
+The sweeps run in place, so every buffer a sweep sees is one the engine
+allocated: a caller's tensors (a 32-bit payload's words are views of it)
+are copied once before the first sweep.
 """
 
 from __future__ import annotations
@@ -208,18 +226,40 @@ class EngineTuning:
     cross_g_max: index bits a cross sweep fuses per device-memory round
     trip. Each contiguous run of the tile shrinks to ``2**(T - g)`` words,
     which :data:`MIN_CHUNK_BITS` bounds from below.
+
+    The routing knobs of non-power-of-two sizes keep the JAX package's
+    names and defaults (its on-chip crossovers were measured on a TPU; the
+    Hopper ones are open):
+
+    seg_pad_waste: a flat non-power-of-two ``n`` takes the segmented route
+    (power-of-two prefix, the rest recursively, one truncated merge) when
+    padding it to ``2**L`` would waste more than this fraction.
+
+    trunc_merge: merge sorted runs with the truncated (virtual-sentinel)
+    merge where its shape allows; ``False`` always pads the merge.
+
+    row_seg_waste, row_seg_min_nr: the same for the row length of batched
+    sorts (``>= 1.0`` always pads rows); rows of at most
+    ``max(row_seg_min_nr, 32)`` elements are always padded.
     """
 
     smem_tile_bytes: int = 200 * 1024
     cross_g_max: int = 8
+    seg_pad_waste: float = 0.15
+    trunc_merge: bool = True
+    row_seg_waste: float = 0.24
+    row_seg_min_nr: int = 1024
 
     @classmethod
     def from_env(cls) -> "EngineTuning":
         kw = {}
         for f in fields(cls):
             raw = os.environ.get(f"THRS_{f.name.upper()}")
-            if raw is not None:
-                kw[f.name] = type(f.default)(raw)
+            if raw is None:
+                continue
+            # bool("0") is True: a bool knob is off only when it reads "0"
+            kind = type(f.default)
+            kw[f.name] = raw != "0" if kind is bool else kind(raw)
         return cls(**kw)
 
 
@@ -451,8 +491,29 @@ def check_word_contract(cmp_words: list, carry_words: list) -> bool:
     return torch.unique(tuples, dim=0).shape[0] == tuples.shape[0]
 
 
+#: nesting cap of the pow2-segment decomposition, and the size at which a
+#: truncated merge's upper chain materializes its sentinels. The JAX
+#: package needs both for an XLA:TPU layout; the port keeps them so that
+#: both packages cut a size into the same pieces. Whether Hopper wants
+#: other values is not measured yet.
+_MAX_SEG_DEPTH = 2
+_TAIL_MAX = 1 << 16
+_INT32_MIN = -(1 << 31)
+
+
+def _fill(i: int, ncmp: int) -> int:
+    """Pad value of word ``i``: the all-ones sentinel in a compare word,
+    zero in a carry word."""
+    return -1 if i < ncmp else 0
+
+
+def _tuning_or_env(tuning: EngineTuning | None) -> EngineTuning:
+    return EngineTuning.from_env() if tuning is None else tuning
+
+
 def sort_words(cmp_words: list, carry_words: list, *,
-               tuning: EngineTuning | None = None):
+               tuning: EngineTuning | None = None,
+               allow_tied_carries: bool = False):
     """Sort int32 word tuples by lexicographic unsigned order of cmp_words.
 
     Returns ``(cmp_words, carry_words)`` reordered; the inputs are not
@@ -460,41 +521,427 @@ def sort_words(cmp_words: list, carry_words: list, *,
 
     Contract: either the cmp tuples are all distinct (e.g. they end in an
     index word), or equal cmp tuples are bit-identical in every word (e.g.
-    there are no carry words). The kernel never swaps ties, but the padded
+    there are no carry words). The kernel never swaps ties, but pad
     sentinels must sort after every real tuple.
 
-    Every n takes the padded route: the words are copied into fresh buffers
-    of ``2**max(ceil_log2 n, MIN_L)`` (all-ones in cmp words, zeros in carry
-    words), the whole network runs in place on them, and the result is
-    truncated to n. The output is unique under the contract, so it is
-    bit-identical to the JAX package's segmented route for the same input.
+    ``allow_tied_carries=True`` lifts the contract: tied cmp tuples with
+    distinct carries come out in some order (an unstable sort). Since the
+    kernel and :func:`_ce_pair` never swap a tied pair, every
+    compare-exchange already moves whole tuples and no separate tie-safe
+    kernel is needed. It is only valid pad-free (``n`` a power of two
+    ``>= 2**MIN_L``): an all-ones real tuple would tie the pad sentinels
+    and could be truncated in their place, so other sizes raise.
+
+    Routes: a non-power-of-two ``n`` whose padding to ``2**L`` would waste
+    more than ``tuning.seg_pad_waste`` takes the segmented route
+    (:func:`_sort_segmented`); every other ``n`` is copied into fresh
+    buffers of ``2**max(ceil_log2 n, MIN_L)`` (all-ones in cmp words, zeros
+    in carry words), the whole network runs in place on them, and the
+    result is truncated to ``n``. The output is unique under the contract,
+    so both routes give the JAX package's output bit for bit.
     ``tuning=None`` reads the ``THRS_*`` knobs at call time.
     """
-    tuning = EngineTuning.from_env() if tuning is None else tuning
+    tuning = _tuning_or_env(tuning)
     n = cmp_words[0].shape[0]
     if n <= 1:
         return list(cmp_words), list(carry_words)
+    if allow_tied_carries and carry_words and (n & (n - 1) or n < 1 << MIN_L):
+        raise ValueError(f"allow_tied_carries needs pad-free n (power of two "
+                         f">= {1 << MIN_L}), got {n}")
     ncmp = len(cmp_words)
-    L = max(_ceil_log2(n), MIN_L)
-    words = [common.pad_to_multiple(w, 1 << L, -1) for w in cmp_words]
-    words += [common.pad_to_multiple(w, 1 << L, 0) for w in carry_words]
-    words = [w[:n] for w in _run_network(words, ncmp, L, tuning)]
+    words = _sort_flat(list(cmp_words) + list(carry_words), ncmp, tuning, 0,
+                       owned=False)
     return words[:ncmp], words[ncmp:]
 
 
-def _run_network(words: list, ncmp: int, L: int,
-                 tuning: EngineTuning) -> list:
-    """Run the full network on ``2**L`` words, in place.
+def _sort_flat(words: list, ncmp: int, tuning: EngineTuning, depth: int,
+               owned: bool) -> list:
+    """:func:`sort_words` on one list of words. ``owned``: the words are
+    buffers of this sort's own (contiguous views of a fresh copy), which
+    the segmented route may sweep in place; otherwise it copies them once."""
+    n = words[0].shape[0]
+    if n <= 1:
+        return words
+    L = max(_ceil_log2(n), MIN_L)
+    if (n > (1 << MIN_L) and n & (n - 1) and depth < _MAX_SEG_DEPTH
+            and n < int((1 << L) * (1.0 - tuning.seg_pad_waste))):
+        if not owned:
+            words = [w.clone(memory_format=torch.contiguous_format)
+                     for w in words]
+        return _sort_segmented(words, n, ncmp, tuning, depth)
+    words = [common.pad_to_multiple(w, 1 << L, _fill(i, ncmp))
+             for i, w in enumerate(words)]
+    return [w[:n] for w in _run_network(words, ncmp, L, tuning)]
 
-    A local sweep's tile is one contiguous run of ``2**T`` elements that a
-    block reads with coalesced loads however the run is split, so the low
-    chunk is the whole tile (``chunk_bits = T``, ``g = 0``).
+
+def _run_network(words: list, ncmp: int, L: int, tuning: EngineTuning,
+                 stages=None, forced_asc: int | None = None,
+                 tile_bits: int | None = None) -> list:
+    """Run the (sub)network of ``stages`` (default: all of ``1..L``) on the
+    words, in place; ``L`` is the network's index-bit span.
+
+    The word length need not be ``2**L``: any multiple of every sweep's
+    block span works (the kernel takes its block count from the length),
+    which the row paths use with a batch padded to a tile multiple.
+    ``tile_bits`` overrides the shared-memory tile choice. A local sweep's
+    tile is one contiguous run of ``2**T`` elements that a block reads with
+    coalesced loads however the run is split, so the low chunk is the whole
+    tile (``chunk_bits = T``, ``g = 0``).
     """
-    tile_bits = _tile_bits_for(len(words), L, tuning)
-    for sweep in plan_sweeps(L, tile_bits, tile_bits,
+    if tile_bits is None:
+        tile_bits = _tile_bits_for(len(words), L, tuning)
+    for sweep in plan_sweeps(L, tile_bits, tile_bits, stages, forced_asc,
                              g_max_cross=tuning.cross_g_max):
         words = run_sweep(words, sweep, ncmp)
     return words
+
+
+# ---------------------------------------------------------------------------
+# Non-power-of-two n: pow2 segments and truncated merges
+# ---------------------------------------------------------------------------
+
+
+def _ce_pair(x_words: list, y_words: list, ncmp: int) -> tuple[list, list]:
+    """Elementwise lexicographic compare-exchange of two word lists ->
+    ``(mins, maxs)``. Ties keep x in the min slot, as the kernel never
+    swaps a tied pair.
+
+    Plain torch ops on every device (in the JAX package these are jnp ops
+    outside any kernel). Unsigned order without widening: a word with its
+    sign bit flipped orders as int32 as the unsigned word does.
+    """
+    xs = [w ^ _INT32_MIN for w in x_words[:ncmp]]
+    ys = [w ^ _INT32_MIN for w in y_words[:ncmp]]
+    swap = ys[-1] < xs[-1]  # y <lex x
+    for w in range(ncmp - 2, -1, -1):
+        swap = (ys[w] < xs[w]) | ((ys[w] == xs[w]) & swap)
+    mins = [torch.where(swap, y, x) for x, y in zip(x_words, y_words)]
+    maxs = [torch.where(swap, x, y) for x, y in zip(x_words, y_words)]
+    return mins, maxs
+
+
+def _dense_merge(words: list, ncmp: int, m: int) -> list:
+    """Ascending bitonic merge of each run of ``m`` (a power of two) in the
+    flat words, by dense compare-exchange levels; for ``m < 2**MIN_L``,
+    below the smallest tile."""
+    for lev in range(m.bit_length() - 2, -1, -1):
+        v = [w.reshape(-1, 2, 1 << lev) for w in words]
+        mins, maxs = _ce_pair([x[:, 0] for x in v], [x[:, 1] for x in v],
+                              ncmp)
+        words = [torch.stack([lo, hi], dim=1).reshape(-1)
+                 for lo, hi in zip(mins, maxs)]
+    return words
+
+
+def _merge_pow2(words: list, ncmp: int, m: int,
+                tuning: EngineTuning) -> list:
+    """Ascending bitonic merge of a bitonic sequence of ``m`` (a power of
+    two) elements: the network's stage ``log2 m`` alone. Sweeps the words
+    in place, so they must be buffers of the caller's own."""
+    if m <= 1:
+        return words
+    if m < (1 << MIN_L):
+        return _dense_merge(words, ncmp, m)
+    lg = m.bit_length() - 1
+    return _run_network(words, ncmp, lg, tuning, stages=[lg])
+
+
+def _merge_sorted_runs(asc_words: list, desc_words: list, ncmp: int,
+                       tuning: EngineTuning | None = None) -> list:
+    """Merge a sorted-ascending run (length ``a``) with a sorted-descending
+    run (length ``b``) into one ascending run of ``a + b``; the inputs are
+    not modified.
+
+    The construction is the virtual bitonic array ``[asc, all-ones
+    sentinel block, desc]`` at a power of two: the maximal sentinels sit at
+    the peak and never move before real data. When ``a`` is a power of two
+    ``>= 2**MIN_L`` and ``b <= a`` (every :func:`_sort_segmented` call) the
+    sentinels stay virtual: a compare-exchange against a sentinel is a
+    no-op, so each split level is computed densely on the real elements
+    (slices and one :func:`_ce_pair`), every all-real half is an exact
+    power of two merged by the stage-``log2`` sweeps with no padding, and
+    all-sentinel halves are dropped as bookkeeping. Other shapes, or
+    ``tuning.trunc_merge=False``, take :func:`_merge_sorted_runs_padded`.
+    """
+    a = asc_words[0].shape[0]
+    b = desc_words[0].shape[0]
+    if b == 0:
+        return list(asc_words)
+    if a == 0:
+        return [torch.flip(w, (0,)) for w in desc_words]
+    tuning = _tuning_or_env(tuning)
+    if a & (a - 1) or b > a or a < (1 << MIN_L) or not tuning.trunc_merge:
+        return _merge_sorted_runs_padded(asc_words, desc_words, ncmp, tuning)
+    # virtual array [asc(a), SENT(a-b), desc(b)] of 2a. First split (stride
+    # a): indices [0, a-b) face sentinels (no-ops); the rest compare-
+    # exchange against the descending run.
+    mid = a - b
+    mins, maxs = _ce_pair([w[mid:] for w in asc_words], list(desc_words),
+                          ncmp)
+    lower = [torch.cat([w[:mid], mn]) for w, mn in zip(asc_words, mins)]
+    # bitonic split: max(lower half) <= min(upper half), and the lower half
+    # is all real and bitonic: its merge gives the smallest a outputs
+    pieces = [_merge_pow2(lower, ncmp, a, tuning)]
+    # upper chain: the virtual [SENT(s), R] of M = s + len(R) (a power of
+    # two), bitonic with a maximal sentinel prefix
+    R, s, M = maxs, mid, a
+    while True:
+        if s == 0:
+            pieces.append(_merge_pow2(R, ncmp, M, tuning))
+            break
+        if M <= _TAIL_MAX:
+            # small tail: materialize [SENT(s), R] once, one padded merge
+            full = [torch.cat([torch.full((s,), _fill(i, ncmp),
+                                          dtype=w.dtype, device=w.device), w])
+                    for i, w in enumerate(R)]
+            pieces.append([w[:M - s]
+                           for w in _merge_pow2(full, ncmp, M, tuning)])
+            break
+        h = M // 2
+        if s >= h:
+            # upper half all sentinel; the lower half is [SENT(s-h), R]
+            s, M = s - h, h
+            continue
+        # split at h: lower[i < s] = R[h-s+i] faces a sentinel, the rest
+        # is the min pair; the upper half [SENT(s), maxes] has the same form
+        mins, maxs = _ce_pair([w[:h - s] for w in R], [w[h:] for w in R],
+                              ncmp)
+        low = [torch.cat([w[h - s:h], mn]) for w, mn in zip(R, mins)]
+        pieces.append(_merge_pow2(low, ncmp, h, tuning))
+        R, M = maxs, h
+    return [torch.cat(ws) for ws in zip(*pieces)]
+
+
+def _merge_sorted_runs_padded(asc_words: list, desc_words: list, ncmp: int,
+                              tuning: EngineTuning | None = None) -> list:
+    """The padded merge: ``[asc, sentinel block, desc]`` materialized at the
+    next power of two (at least ``2**MIN_L``) and merged by one stage."""
+    tuning = _tuning_or_env(tuning)
+    a = asc_words[0].shape[0]
+    b = desc_words[0].shape[0]
+    m = 1 << max(_ceil_log2(a + b), MIN_L)
+    out = []
+    for i, (aw, dw) in enumerate(zip(asc_words, desc_words)):
+        pad = torch.full((m - a - b,), _fill(i, ncmp), dtype=aw.dtype,
+                         device=aw.device)
+        out.append(torch.cat([aw, pad, dw]))
+    lg = m.bit_length() - 1
+    out = _run_network(out, ncmp, lg, tuning, stages=[lg])
+    return [w[:a + b] for w in out]
+
+
+def _sort_segmented(words: list, n: int, ncmp: int, tuning: EngineTuning,
+                    depth: int) -> list:
+    """Sort a non-power-of-two ``n``: the largest power-of-two prefix by the
+    full network, the rest recursively (nesting capped at
+    :data:`_MAX_SEG_DEPTH`), then one truncated merge. Sweeps the words in
+    place: they are buffers of the sort's own, and ``w[:a]``, ``w[a:]`` are
+    disjoint contiguous views of them."""
+    a = 1 << (n.bit_length() - 1)
+    left = _run_network([w[:a] for w in words], ncmp, a.bit_length() - 1,
+                        tuning)
+    right = _sort_flat([w[a:] for w in words], ncmp, tuning, depth + 1,
+                       owned=True)
+    right = [torch.flip(w, (0,)) for w in right]
+    return _merge_sorted_runs(left, right, ncmp, tuning)
+
+
+# ---------------------------------------------------------------------------
+# Batched rows
+# ---------------------------------------------------------------------------
+
+
+def _row_plan(B: int, r: int, nwords: int,
+              tuning: EngineTuning) -> tuple[int, int]:
+    """``(tile_bits, b_pad)`` for the row network of ``B`` rows of ``2**r``
+    elements (stages ``1..r``, stage ``r`` forced ascending).
+
+    Rows never interact (every substage bit is below ``r``), so the batch
+    only pads to a tile multiple: ``2**(T - r)`` rows when the tile spans
+    several rows, nothing when ``T <= r``. Re-derived for Hopper: the JAX
+    cost model weighs the TPU's roll against its pair-split substages,
+    neither of which exists here. Every candidate ``T`` in
+    ``[max(r, MIN_L), T_hi]`` runs the whole row network in one local
+    sweep, and a substage costs the same at any tile bit, so the work is
+    the padded element count times a fixed substage count: the fewest
+    padded elements wins, and on a tie the larger tile (fewer, fuller
+    blocks for the same bytes).
+    """
+    T_hi = _tile_bits_for(nwords, max(r + _ceil_log2(max(B, 1)), MIN_L),
+                          tuning)
+    if T_hi <= r:
+        return T_hi, B  # the tile lies inside one row: any B divides
+
+    def b_pad(T: int) -> int:
+        m = 1 << (T - r) if T > r else 1
+        return -(-B // m) * m
+
+    best = min(range(max(r, MIN_L), T_hi + 1), key=lambda T: (b_pad(T), -T))
+    return best, b_pad(best)
+
+
+def _pad_rows(w: torch.Tensor, B: int, nr: int, r: int, b_pad: int,
+              fill: int) -> torch.Tensor:
+    """Flat ``(B, nr)`` words -> a fresh flat ``(b_pad, 2**r)`` buffer, rows
+    padded with ``fill`` and ``b_pad - B`` rows of ``fill`` below them
+    (always a copy: the network sweeps it in place)."""
+    out = torch.empty((b_pad, 1 << r), dtype=w.dtype, device=w.device)
+    out[:B, :nr] = w.reshape(B, nr)
+    out[:B, nr:] = fill
+    out[B:] = fill
+    return out.view(-1)
+
+
+def sort_words_rows(cmp_words: list, carry_words: list, shape, *,
+                    tuning: EngineTuning | None = None,
+                    allow_tied_carries: bool = False,
+                    _seg_depth: int = 0):
+    """Row-wise :func:`sort_words`: each of the ``B`` rows of the row-major
+    flat words (``shape = (B, nr)``, word length ``B * nr``) sorts on its
+    own; the inputs are not modified.
+
+    Rows pad to ``2**r`` with sentinels and the network runs stages
+    ``1..r`` only, with stage ``r`` forced ascending: every partner differs
+    in a bit below ``r``, so rows never interact and the work is ``B``
+    times one row's. The batch pads only to a tile multiple
+    (:func:`_row_plan`). A non-power-of-two row whose padding would waste
+    more than ``tuning.row_seg_waste`` takes :func:`_sort_segmented_rows`.
+    Same word contract as :func:`sort_words`, per row;
+    ``allow_tied_carries`` needs power-of-two rows (batch sentinel rows are
+    safe, in-row sentinels are not).
+    """
+    B, nr = shape
+    if nr <= 1 or B == 0:
+        return list(cmp_words), list(carry_words)
+    ncmp = len(cmp_words)
+    nwords = ncmp + len(carry_words)
+    r = _ceil_log2(nr)
+    if allow_tied_carries and carry_words and nr != (1 << r):
+        raise ValueError(
+            f"allow_tied_carries needs power-of-two rows, got {nr}")
+    tuning = _tuning_or_env(tuning)
+    words = list(cmp_words) + list(carry_words)
+    if (nr & (nr - 1) and _seg_depth < _MAX_SEG_DEPTH
+            and nr > max(tuning.row_seg_min_nr, 32)
+            and nr < int((1 << r) * (1.0 - tuning.row_seg_waste))):
+        words = _sort_segmented_rows(words, B, nr, ncmp, tuning, _seg_depth)
+        return words[:ncmp], words[ncmp:]
+    T, b_pad = _row_plan(B, r, nwords, tuning)
+    words = [_pad_rows(w, B, nr, r, b_pad, _fill(i, ncmp))
+             for i, w in enumerate(words)]
+    words = _run_network(words, ncmp, max(T, r), tuning,
+                         stages=range(1, r + 1), forced_asc=r, tile_bits=T)
+    words = [w.view(b_pad, 1 << r)[:B, :nr].reshape(-1) for w in words]
+    return words[:ncmp], words[ncmp:]
+
+
+def _merge_rows(words: list, ncmp: int, B: int, nr: int,
+                tuning: EngineTuning, owned: bool) -> list:
+    """Merge each bitonic row of the flat ``(B, nr)`` words (``nr`` a power
+    of two) to ascending order: stage ``log2 nr`` alone, forced ascending.
+    ``owned``: the words are fresh buffers that may be swept in place."""
+    r = nr.bit_length() - 1
+    if nr < (1 << MIN_L):
+        return _dense_merge(words, ncmp, nr)
+    T, b_pad = _row_plan(B, r, len(words), tuning)
+    if b_pad != B or not owned:
+        # sentinel rows (constant, so bitonic) up to a tile multiple, in a
+        # fresh buffer
+        words = [_pad_rows(w, B, nr, r, b_pad, _fill(i, ncmp))
+                 for i, w in enumerate(words)]
+    words = _run_network(words, ncmp, max(T, r), tuning, stages=[r],
+                         forced_asc=r, tile_bits=T)
+    return [w[:B * nr] for w in words]
+
+
+def merge_words_rows(cmp_words: list, carry_words: list, shape, *,
+                     tuning: EngineTuning | None = None):
+    """Merge each row of the flat words to ascending order; the inputs are
+    not modified.
+
+    ``shape = (B, nr)`` with ``nr`` a power of two, and every row must be a
+    bitonic sequence (e.g. ``[ascending run, descending run]``, sentinel
+    plateaus allowed). Runs the final merge stage alone: ``log2 nr``
+    substages per row instead of a full sort; below ``2**MIN_L`` the dense
+    compare-exchange levels of :func:`_merge_pow2`.
+    """
+    B, nr = shape
+    if nr <= 1 or B == 0:
+        return list(cmp_words), list(carry_words)
+    if nr & (nr - 1):
+        raise ValueError(f"merge_words_rows needs power-of-two rows, got {nr}")
+    ncmp = len(cmp_words)
+    words = _merge_rows(list(cmp_words) + list(carry_words), ncmp, B, nr,
+                        _tuning_or_env(tuning), owned=False)
+    return words[:ncmp], words[ncmp:]
+
+
+def _merge_pow2_rows(words2d: list, ncmp: int, m: int,
+                     tuning: EngineTuning) -> list:
+    """Row-wise :func:`_merge_pow2` of the ``(B, m)`` words (fresh buffers,
+    swept in place)."""
+    if m <= 1:
+        return words2d
+    B = words2d[0].shape[0]
+    flat = _merge_rows([w.reshape(-1) for w in words2d], ncmp, B, m, tuning,
+                       owned=True)
+    return [w.view(B, m) for w in flat]
+
+
+def _merge_sorted_runs_rows(asc: list, desc: list, ncmp: int,
+                            tuning: EngineTuning) -> list:
+    """Row-wise :func:`_merge_sorted_runs`: each ascending row of the
+    ``(B, a)`` words with the matching descending row of the ``(B, b)``
+    words, into one ascending row of ``a + b``. Needs ``a`` a power of two
+    and ``0 < b <= a`` (every :func:`_sort_segmented_rows` shape). Unlike
+    the flat form, the chain runs to its end: its pieces are ``(B, h)``
+    column blocks, at most ``log2 a`` of them."""
+    B, a = asc[0].shape
+    b = desc[0].shape[1]
+    if b == 0:
+        return list(asc)
+    if a & (a - 1) or b > a:
+        raise ValueError(f"row merge needs a power-of-two a >= b, got "
+                         f"a={a}, b={b}")
+    mid = a - b
+    mins, maxs = _ce_pair([w[:, mid:] for w in asc], list(desc), ncmp)
+    lower = [torch.cat([w[:, :mid], mn], dim=1) for w, mn in zip(asc, mins)]
+    pieces = [_merge_pow2_rows(lower, ncmp, a, tuning)]
+    R, s, M = maxs, mid, a
+    while True:
+        if s == 0:
+            pieces.append(_merge_pow2_rows(R, ncmp, M, tuning))
+            break
+        h = M // 2
+        if s >= h:
+            s, M = s - h, h
+            continue
+        mins, maxs = _ce_pair([w[:, :h - s] for w in R],
+                              [w[:, h:] for w in R], ncmp)
+        low = [torch.cat([w[:, h - s:h], mn], dim=1)
+               for w, mn in zip(R, mins)]
+        pieces.append(_merge_pow2_rows(low, ncmp, h, tuning))
+        R, M = maxs, h
+    return [torch.cat(ws, dim=1) for ws in zip(*pieces)]
+
+
+def _sort_segmented_rows(words: list, B: int, nr: int, ncmp: int,
+                         tuning: EngineTuning, depth: int) -> list:
+    """Row-wise :func:`_sort_segmented`: each row's largest power-of-two
+    prefix by the row network, the rest of each row recursively (nesting
+    capped at :data:`_MAX_SEG_DEPTH`), then one truncated row merge; no
+    in-row sentinels."""
+    a = 1 << (nr.bit_length() - 1)
+    w2d = [w.reshape(B, nr) for w in words]
+    left = [w[:, :a].reshape(-1) for w in w2d]
+    right = [w[:, a:].reshape(-1) for w in w2d]
+    lc, lk = sort_words_rows(left[:ncmp], left[ncmp:], (B, a), tuning=tuning)
+    rc, rk = sort_words_rows(right[:ncmp], right[ncmp:], (B, nr - a),
+                             tuning=tuning, _seg_depth=depth + 1)
+    asc = [w.view(B, a) for w in lc + lk]
+    desc = [torch.flip(w.reshape(B, nr - a), (1,)) for w in rc + rk]
+    out = _merge_sorted_runs_rows(asc, desc, ncmp, tuning)
+    return [w.reshape(-1) for w in out]
 
 
 def pack_carries(arrays) -> tuple[list, list]:

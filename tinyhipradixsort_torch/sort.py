@@ -21,13 +21,16 @@ select any bit window of the transformed bits; descending order is the
 bitwise complement of the transform, still stable.
 
 Engines (``method=``): ``"auto"`` and ``"bitonic"`` run the bitonic network
-(``csrc/bitonic_sweep.cu``) on 1-D keys of u32, i32, f32, u64, i64 and
-f64. The portable engines ``"counting"`` (the reference's histogram, scan
-and scatter pass; its histogram is ``csrc/digit_histogram.cu``),
-``"argsort"`` and ``"lsd_argsort"`` (``torch.sort``) take every key dtype,
-16-bit included, 2-D keys (each row sorted on its own) and
-``segment_ids=``. The bitonic engine raises ``NotImplementedError`` for
-those until its later slices.
+(``csrc/bitonic_sweep.cu``). It takes every key dtype (u32, i32, f32, u64,
+i64, f64 and the 16-bit u16, i16, f16, bf16), 1-D keys of any length (a
+non-power-of-two n sorts as power-of-two segments joined by truncated
+merges), 2-D keys (each row sorted on its own by a row-truncated network),
+``segment_ids=`` (the segment bits lead the compare tuple) and
+``stable=False`` (the index word is dropped where no padding is needed).
+The portable engines ``"counting"`` (the reference's histogram, scan and
+scatter pass; its histogram is ``csrc/digit_histogram.cu``), ``"argsort"``
+and ``"lsd_argsort"`` (``torch.sort``) take the same inputs and are always
+stable.
 """
 
 from __future__ import annotations
@@ -156,7 +159,7 @@ def _sort_portable(keys, leaves, *, method, descending, start_bit, end_bit,
 
 
 def _sort_entry(keys, values, *, method, descending, start_bit, end_bit,
-                want, zeros_exact=True, seg=None, tuning=None):
+                want, zeros_exact=True, seg=None, tuning=None, stable=True):
     """want: subset of ('keys', 'values', 'indices') controlling outputs."""
     leaves, rebuild = [], None
     if "values" in want:
@@ -173,7 +176,8 @@ def _sort_entry(keys, values, *, method, descending, start_bit, end_bit,
         out = list(network_engine.sort_semantics(
             keys, leaves, descending=descending, start_bit=start_bit,
             end_bit=end_bit, want=want, zeros_exact=zeros_exact,
-            tuning=tuning))
+            seg_bits=None if seg is None else keybits.key_bits(seg),
+            tuning=tuning, stable=stable))
     else:
         out = _sort_portable(keys, leaves, method=method,
                              descending=descending, start_bit=start_bit,
@@ -208,20 +212,6 @@ def _prep(keys, order, start_bit, end_bit, method, segment_ids):
         raise ValueError(
             "keys must be 1-D (single sort) or 2-D (batched row-wise sorts), "
             f"got shape {tuple(keys.shape)}")
-    if method == "bitonic":
-        if segment_ids is not None:
-            raise NotImplementedError(
-                "segment_ids= on the bitonic engine is not ported yet "
-                "(ROADMAP, bitonic engine only); use method='counting', "
-                "'argsort' or 'lsd_argsort'")
-        if keys.ndim == 2:
-            raise NotImplementedError(
-                "batched 2-D keys on the bitonic engine are not ported yet "
-                "(ROADMAP, bitonic engine only); use a portable engine")
-        if keybits.bit_width(keys.dtype) == 16:
-            raise NotImplementedError(
-                f"{keys.dtype} keys on the bitonic engine are not ported yet "
-                "(ROADMAP, bitonic engine only); use a portable engine")
     descending = SortOrder.parse(order).descending
     start_bit, end_bit = common.resolve_window(keys.dtype, start_bit, end_bit)
     seg = _prep_segments(segment_ids, keys)
@@ -237,11 +227,11 @@ def sort_keys(keys, *, order="ascending", start_bit=0, end_bit=None,
     Reference parity: ``RadixSort::sortKeys`` (hpp:845-848). The input is
     never modified. ``donate=True`` is accepted and has no effect yet.
 
-    2-D ``keys`` are a batch: each row sorts on its own (portable engines).
-    ``segment_ids`` (keys-shaped integers) selects a segmented sort:
+    2-D ``keys`` are a batch: each row sorts on its own (on the bitonic
+    engine a network truncated to one row's stages, ``B`` times one row's
+    work). ``segment_ids`` (keys-shaped integers) selects a segmented sort:
     elements order by ``(segment_id, key)``, stable; segment ids always
-    order ascending, ``order`` applies to keys within a segment (portable
-    engines).
+    order ascending, ``order`` applies to keys within a segment.
 
     ``zeros_exact=False`` is a float-keys fast path of the bitonic engine
     (1 sorted word instead of bits + tagged stability index): every ``-0.0``
@@ -265,14 +255,17 @@ def sort_pairs(keys, values, *, order="ascending", start_bit=0, end_bit=None,
     each row; value leaves then share the leading ``(B, n)`` axes.
 
     ``stable=False`` permits, and does not require, any order among equal
-    keys (the JAX contract, ``tinyhipradixsort_tpu/sort.py``); in this port
-    the sort stays stable. ``donate=True`` is accepted and has no effect
-    yet. ``zeros_exact`` and ``segment_ids`` have :func:`sort_keys`
-    semantics.
+    keys: the bitonic engine drops the stability index word where the sort
+    needs no padding (a power-of-two row length; a flat n also >= 1024),
+    so u32+u32 pairs move 2 words instead of 3 and u64+u64 4 instead of 5.
+    Other sizes and the portable engines stay stable. Float keys keep the
+    word (it holds the ``-0.0`` tag) unless ``zeros_exact=False`` too.
+    ``donate=True`` is accepted and has no effect yet. ``zeros_exact`` and
+    ``segment_ids`` have :func:`sort_keys` semantics.
     """
     keys, kw = _prep(keys, order, start_bit, end_bit, method, segment_ids)
     return _sort_entry(keys, values, want=("keys", "values"),
-                       zeros_exact=zeros_exact,
+                       zeros_exact=zeros_exact, stable=stable,
                        tuning=EngineTuning.from_env(), **kw)
 
 
