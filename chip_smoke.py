@@ -26,19 +26,23 @@ Phases, one output line each (time, kernel launches, result):
    the bench workload; pairs at 2**24 and 2**16; f32 with NaN and -0.0;
    u64 pairs; u32 keys and u32+u32 pairs at 160,000,000 through the
    segmented route; a descending, a bit-window and a sort_indices case;
-   2-D rows 4096x4096 keys, 16384x1024 pairs and 4096x1040 keys (the
-   row-segmented route); segment_ids= of 1000 segments on 2**24 pairs;
-   f16 and bf16 keys with NaN payloads and -0.0; stable=False pairs at
-   2**24, which must sort 2 words), each bit-exact against a numpy oracle
-   on the host, each required to launch the kernel and to take its route;
+   2-D rows 4096x4096 keys, 16384x1024 pairs, 4096x1040 keys (padded
+   rows) and 64x640000 keys (the row-segmented route);
+   segment_ids= of 1000 segments on 2**24 pairs; f16 and bf16 keys with
+   NaN payloads and -0.0; stable=False pairs at 2**24, which must sort 2
+   words), each bit-exact against a numpy oracle on the host, each
+   required to launch the kernel and to take its route (read at the
+   engine's MARK hook);
 5. timing: sort_keys u32 at 2**28 (CUDA events, median of 5 after a
    warm-up) beside torch.sort(stable=True) as the yardstick, and the first
    sweep of its network through the kernel beside its plain version, each
    run on a fresh copy of the random keys and required bit-equal;
    sort_pairs u32+u32 and u64+u64 at 2**24; 160,000,000 u32 keys through
    the segmented and the padded route beside torch.sort; the three row
-   cells beside torch.sort(dim=-1) and the counting engine; stable=False
-   beside stable=True pairs at 2**24;
+   cells beside torch.sort(dim=-1) and the counting engine, and both row
+   routes on eleven non-power-of-two row shapes from 4096x1040 to
+   16x12,500,000 (``phase_row_routes``); stable=False beside stable=True
+   pairs at 2**24;
 6. breakdown: the device time of each of that network's sweeps, of the
    two pairs sorts' sweeps by group, and of the 160M segmented sort by
    part (prefix network, recursive remainder, dense compare-exchange
@@ -492,8 +496,10 @@ def main_path_cases():
         ("sort_keys u32 rows 4096x4096", rows(4096, 4096), "rows", None),
         ("sort_pairs u32+u32 rows 16384x1024", rows(16384, 1024, True),
          "rows", None),
-        ("sort_keys u32 rows 4096x1040 (non-power-of-two rows)",
-         rows(4096, 1040), "rows-segmented", None),
+        ("sort_keys u32 rows 4096x1040 (non-power-of-two rows, a batch "
+         "below the row-segmented floor)", rows(4096, 1040), "rows", None),
+        ("sort_keys u32 rows 64x640000 (non-power-of-two rows, 2**26 "
+         "padded)", rows(64, 640_000), "rows-segmented", None),
         ("sort_pairs u32+u32 segment_ids_from_offsets (1000 segments) "
          "n=2**24", segments(1 << 24, 1000), "padded", 4),
         ("sort_keys f16 NaN payloads/-0.0 n=2**22",
@@ -505,54 +511,23 @@ def main_path_cases():
     ]
 
 
-#: the engine's entry points whose calls phase 4 records, to check each
-#: case's route (and the words a sort moved)
-ROUTES = ("sort_words", "sort_words_rows", "_sort_segmented",
-          "_sort_segmented_rows")
-
-
-def record_routes(calls: list):
-    """Wrap the engine entries of :data:`ROUTES` to append (name, words)
-    for each call to ``calls``; returns a function that unwraps them."""
-    real = {name: getattr(be, name) for name in ROUTES}
-
-    def wrap(name):
-        def recorded(*args, **kw):
-            words = (len(args[0]) + len(args[1]) if name.startswith("sort")
-                     else len(args[0]))
-            calls.append((name, words))
-            return real[name](*args, **kw)
-        return recorded
-
-    for name in ROUTES:
-        setattr(be, name, wrap(name))
-    return lambda: [setattr(be, name, fn) for name, fn in real.items()]
-
-
-def route_of(calls: list) -> str:
-    names = {name for name, _ in calls}
-    if "_sort_segmented_rows" in names:
-        return "rows-segmented"
-    if "sort_words_rows" in names:
-        return "rows"
-    return "segmented" if "_sort_segmented" in names else "padded"
-
-
 def phase_main_path() -> int:
     rng = np.random.default_rng(SEED)
     be.KERNEL_LAUNCHES = 0
     for label, run, route, nwords in main_path_cases():
         before = be.KERNEL_LAUNCHES
-        calls = []
-        restore = record_routes(calls)
+        # the engine's routing decisions: the first is the sort's own route
+        # (and the words it sorts); later ones are its pieces'
+        routes = []
+        be.MARK = lambda event, name, words: (
+            routes.append((name, len(words))) if event == "route" else None)
         try:
             secs, check = run(rng)
         finally:
-            restore()
+            be.MARK = None
         launches = be.KERNEL_LAUNCHES - before
         ok = check()
-        took = route_of(calls)
-        moved = calls[0][1]
+        took, moved = routes[0]
         log("4 main-path", f"{label}: {secs * 1e3:.3f} ms (host clock, "
             f"synchronized) launches={launches} route={took} words={moved} "
             f"{'bit-exact' if ok else 'MISMATCH'} vs numpy oracle")
@@ -795,7 +770,8 @@ def phase_nonpow2_timing(card: str) -> tuple[torch.Tensor, float]:
 
 def phase_rows_timing(card: str) -> None:
     """The row cells beside torch.sort(dim=-1, stable=True) (with a gather
-    of the values for pairs) and the counting engine."""
+    of the values for pairs) and the counting engine; then both row routes
+    from short rows to long ones."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 4096)
     for B, n, with_values in ((4096, 4096, False), (16384, 1024, True),
@@ -818,20 +794,62 @@ def phase_rows_timing(card: str) -> None:
             def library():
                 return torch.sort(signed, dim=-1, stable=True)
         lib_ms = cuda_ms(library, 5)
-        padded = ""
-        if n & (n - 1):
-            # the same rows padded to 2**r in one network (row_seg_waste=1.0)
-            pad_ms = cuda_ms(lambda: _sort_keys_tuned(
-                x, be.EngineTuning(row_seg_waste=1.0)), 5)
-            padded = f", padded rows (row_seg_waste=1.0) {pad_ms:.3f} ms"
         what = "sort_pairs u32+u32" if with_values else "sort_keys u32"
         log("5 timing", f"{what} rows {B}x{n}: bitonic {ms:.3f} ms "
-            f"({B * n / ms / 1e6:.4f} Gkeys/s){padded}, torch.sort(dim=-1, "
+            f"({B * n / ms / 1e6:.4f} Gkeys/s), torch.sort(dim=-1, "
             f"stable=True){' + take_along_dim' if with_values else ''} "
             f"{lib_ms:.3f} ms, counting {count_ms:.3f} ms; median of 5, CUDA "
             f"events; card: {card}")
         del x, v, signed
         torch.cuda.empty_cache()
+    phase_row_routes(card)
+
+
+#: (B, n) of phase 5's row-route comparison: about 40% padding from short
+#: rows to long ones and from 2**23 to 2**28 padded elements, and one shape
+#: just above the 0.24 waste threshold
+ROW_ROUTE_SHAPES = ((4096, 1040), (1024, 10_000), (64, 160_000),
+                    (4, 2_500_000), (2, 10_000_000), (4, 10_000_000),
+                    (64, 640_000), (8, 10_000_000), (16, 10_000_000),
+                    (128, 1_250_000), (16, 12_500_000))
+
+
+def phase_row_routes(card: str) -> None:
+    """Both row routes on the shapes of :data:`ROW_ROUTE_SHAPES`: the
+    padded row network and the row-segmented route at the JAX package's
+    row_seg_waste=0.24 (its Hopper batch floor, ``_ROW_SEG_MIN_PADDED``,
+    set from these shapes, lowered so that it runs at each), beside
+    torch.sort(dim=-1, stable=True)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1040)
+    pad_rows = be.EngineTuning(row_seg_waste=1.0)
+    seg_rows = be.EngineTuning(row_seg_waste=0.24)
+    # the route at every shape: its batch floor lowered for this phase
+    floor = be._ROW_SEG_MIN_PADDED
+    be._ROW_SEG_MIN_PADDED = 0
+    try:
+        for B, n in ROW_ROUTE_SHAPES:
+            x = _random_u32(B * n, gen, (B, n))
+            pad_ms = cuda_ms(lambda: _sort_keys_tuned(x, pad_rows), 5)
+            seg_ms = cuda_ms(lambda: _sort_keys_tuned(x, seg_rows), 5)
+            signed = _flipped(x)
+            lib_ms = cuda_ms(
+                lambda: torch.sort(signed, dim=-1, stable=True), 5)
+            same = torch.equal(_sort_keys_tuned(x, pad_rows),
+                               _sort_keys_tuned(x, seg_rows))
+            log("5 timing", f"sort_keys u32 rows {B}x{n} (waste "
+                f"{1 - n / (1 << (n - 1).bit_length()):.3f}): padded rows "
+                f"{pad_ms:.3f} ms, row-segmented (row_seg_waste=0.24) "
+                f"{seg_ms:.3f} ms ({pad_ms / seg_ms:.3f}x), "
+                f"torch.sort(dim=-1, stable=True) {lib_ms:.3f} ms; routes "
+                f"{'bit-equal' if same else 'MISMATCH'}; median of 5, CUDA "
+                f"events; card: {card}")
+            del x, signed
+            torch.cuda.empty_cache()
+            if not same:
+                raise AssertionError(f"row routes disagree at {B}x{n}")
+    finally:
+        be._ROW_SEG_MIN_PADDED = floor
 
 
 def phase_unstable_timing(card: str) -> None:
@@ -850,57 +868,44 @@ def phase_unstable_timing(card: str) -> None:
     torch.cuda.empty_cache()
 
 
-#: phase 6's parts of the segmented sort: the engine function whose
-#: outermost calls make each part
-SEG_PARTS = {"_run_network": "prefix network",
-             "_sort_flat": "recursive remainder",
-             "_ce_pair": "dense _ce_pair levels",
-             "_merge_pow2": "_merge_pow2 sweeps"}
-
-
 def phase_segmented_breakdown(x: torch.Tensor, seg_ms: float,
                               card: str) -> None:
-    """Device time of the 160M segmented sort_keys by part: CUDA events
-    around the outermost call of each engine function of
-    :data:`SEG_PARTS` (the depth-0 ``_sort_flat`` is the sort itself and
-    is not a part); the rest (the first copy, the flip, the key transform,
-    the concatenations and the sentinel blocks) is the sort's time less
-    the parts'. Median of 3 passes after a warm-up."""
-    real = {name: getattr(be, name) for name in SEG_PARTS}
+    """Device time of the 160M segmented sort_keys by part: CUDA events at
+    the engine's ``MARK`` hook around each outermost part (prefix network,
+    recursive remainder, dense levels, merge sweeps); the rest (the first
+    copy, the flip, the key transform, the concatenations and the sentinel
+    blocks) is the sort's time less the parts'. Median of 3 passes after a
+    warm-up."""
     tuning = be.EngineTuning()
     passes, sizes = [], []
     for rep in range(4):
-        spans, active = [], [0]
+        spans, depth = [], [0]
 
-        def wrap(name):
-            def timed(*args, **kw):
-                if active[0] or (name == "_sort_flat" and args[3] == 0):
-                    return real[name](*args, **kw)
-                active[0] += 1
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                a.record()
-                try:
-                    out = real[name](*args, **kw)
-                finally:
-                    active[0] -= 1
-                b.record()
-                spans.append((name, int(args[0][0].shape[0]), a, b))
-                return out
-            return timed
+        def mark(event, name, words):
+            if event == "begin":
+                depth[0] += 1
+                if depth[0] == 1:
+                    ev = torch.cuda.Event(enable_timing=True)
+                    ev.record()
+                    spans.append([name, int(words[0].shape[0]), ev, None])
+            elif event == "end":
+                if depth[0] == 1:
+                    spans[-1][3] = torch.cuda.Event(enable_timing=True)
+                    spans[-1][3].record()
+                depth[0] -= 1
 
-        for name in SEG_PARTS:
-            setattr(be, name, wrap(name))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        be.MARK = mark
         try:
             start.record()
             _sort_keys_tuned(x, tuning)
             end.record()
         finally:
-            for name, fn in real.items():
-                setattr(be, name, fn)
+            be.MARK = None
         torch.cuda.synchronize()
+        if depth[0] != 0 or not spans:
+            raise AssertionError("160M segmented sort: unbalanced or no parts")
         if rep:
             passes.append([a.elapsed_time(b) for _, _, a, b in spans]
                           + [start.elapsed_time(end)])
@@ -910,9 +915,9 @@ def phase_segmented_breakdown(x: torch.Tensor, seg_ms: float,
     total = med[-1]
     by_part = {}
     for (name, n), ms in zip(sizes, med):
-        log("6 breakdown", f"160M segmented: {SEG_PARTS[name]} on {n} "
-            f"elements: {ms:.3f} ms")
-        by_part[SEG_PARTS[name]] = by_part.get(SEG_PARTS[name], 0.0) + ms
+        log("6 breakdown", f"160M segmented: {name} on {n} elements: "
+            f"{ms:.3f} ms")
+        by_part[name] = by_part.get(name, 0.0) + ms
     by_part["copies, flip, concatenations, key transform (the rest)"] = (
         total - sum(by_part.values()))
     for part, ms in by_part.items():

@@ -189,7 +189,7 @@ def test_kernel_matches_plain_version_on_row_networks(cuda, nwords, ncmp, B,
             assert torch.equal(g, w), (stages, T, b_pad)
 
 
-def test_new_bitonic_paths_on_the_card(cuda):
+def test_new_bitonic_paths_on_the_card(cuda, monkeypatch):
     # the paths of the segmented route, the rows, segment_ids=, 16-bit keys
     # and stable=False, each against the same call on CPU tensors (the
     # plain version) and each launching the kernel
@@ -223,6 +223,14 @@ def test_new_bitonic_paths_on_the_card(cuda):
             signed = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
                 g.dtype.itemsize]
             assert torch.equal(g.cpu().view(signed), w.view(signed)), label
+    # the row-segmented route, with its batch floor lowered to this batch
+    monkeypatch.setattr(tbe, "_ROW_SEG_MIN_PADDED", 0)
+    words = torch.from_numpy(rows.view(np.int32)).reshape(-1)
+    before = tbe.KERNEL_LAUNCHES
+    (got,), _ = tbe.sort_words_rows([words.to(cuda)], [], (64, 1040))
+    assert tbe.KERNEL_LAUNCHES > before
+    (want,), _ = tbe.sort_words_rows([words], [], (64, 1040))
+    assert torch.equal(got.cpu(), want)
     # stable=False at a power of two: keys sorted, values a permutation
     keys = x[:1 << 16] % 97
     k, v = tthrs.sort_pairs(torch.from_numpy(keys).to(cuda),

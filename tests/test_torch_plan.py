@@ -95,24 +95,20 @@ def test_tuning_from_env_reads_every_field(monkeypatch):
     monkeypatch.setenv("THRS_CROSS_G_MAX", "5")
     monkeypatch.setenv("THRS_SMEM_TILE_BYTES", "65536")
     monkeypatch.setenv("THRS_SEG_PAD_WASTE", "0.5")
-    monkeypatch.setenv("THRS_TRUNC_MERGE", "0")
+    monkeypatch.setenv("THRS_ROW_SEG_WASTE", "0.3")
     monkeypatch.setenv("THRS_ROW_SEG_MIN_NR", "64")
     got = tbe.EngineTuning.from_env()
     assert got == tbe.EngineTuning(smem_tile_bytes=65536, cross_g_max=5,
-                                   seg_pad_waste=0.5, trunc_merge=False,
+                                   seg_pad_waste=0.5, row_seg_waste=0.3,
                                    row_seg_min_nr=64)
     assert {f.name for f in dataclasses.fields(got)} == {
-        "smem_tile_bytes", "cross_g_max", "seg_pad_waste", "trunc_merge",
-        "row_seg_waste", "row_seg_min_nr"}
+        "smem_tile_bytes", "cross_g_max", "seg_pad_waste", "row_seg_waste",
+        "row_seg_min_nr"}
     assert tbe._tile_bits_for(1, 30, got) == 14
-    # a bool knob is off only when it reads "0", as in the JAX package
-    monkeypatch.setenv("THRS_TRUNC_MERGE", "1")
-    assert tbe.EngineTuning.from_env().trunc_merge is True
-    jt = jbe.EngineTuning()
-    assert (tbe.EngineTuning().seg_pad_waste, tbe.EngineTuning().trunc_merge,
-            tbe.EngineTuning().row_seg_waste,
-            tbe.EngineTuning().row_seg_min_nr) == (
-        jt.seg_pad_waste, jt.trunc_merge, jt.row_seg_waste, jt.row_seg_min_nr)
+    # the routing knobs keep the JAX package's names and defaults
+    jt, tt = jbe.EngineTuning(), tbe.EngineTuning()
+    assert (tt.seg_pad_waste, tt.row_seg_waste, tt.row_seg_min_nr) == (
+        jt.seg_pad_waste, jt.row_seg_waste, jt.row_seg_min_nr)
 
 
 def test_common_helpers_match_jax():

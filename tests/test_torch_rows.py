@@ -1,7 +1,8 @@
 """The port's batched row sorts on the bitonic engine: the row network
 (stages ``1..r``, stage ``r`` forced ascending, the batch padded to a tile
-multiple), the row-segmented route for non-power-of-two rows, the row
-merge, and 2-D keys through the public API.
+multiple), the row-segmented route for non-power-of-two rows (taken from
+a batch of ``_ROW_SEG_MIN_PADDED`` padded elements up; the tests lower
+that floor), the row merge, and 2-D keys through the public API.
 
 The same numpy inputs go through the JAX package (engine functions with
 ``interpret=True``, the public API with ``method="pallas"``) and through
@@ -47,6 +48,8 @@ def _count_row_segmented(monkeypatch):
     (9, 64, False),    # power-of-two rows: the row network alone
 ])
 def test_sort_words_rows_matches_jax(monkeypatch, B, nr, segmented):
+    # the Hopper batch floor lowered so these small batches take the route
+    monkeypatch.setattr(tbe, "_ROW_SEG_MIN_PADDED", 0)
     rng = np.random.default_rng(RNG_SEED + B * nr)
     k = rng.integers(0, 2**8, (B, nr)).astype(np.uint32).reshape(-1)
     idx = np.tile(np.arange(nr, dtype=np.uint32), B)
@@ -65,6 +68,24 @@ def test_sort_words_rows_matches_jax(monkeypatch, B, nr, segmented):
         assert_bits_equal(g, np.asarray(w))
     assert_bits_equal(cmp_in[0], k)
     assert_bits_equal(carry_in[0], pay)
+
+
+def test_row_segmented_route_needs_a_large_batch(monkeypatch):
+    # the route is taken from _ROW_SEG_MIN_PADDED padded elements (B * 2**r)
+    # up; here the floor is scaled down to 64 rows of 2048 to keep it small
+    assert tbe._ROW_SEG_MIN_PADDED == 1 << 26
+    monkeypatch.setattr(tbe, "_ROW_SEG_MIN_PADDED", 64 * 2048)
+    routes = []
+    monkeypatch.setattr(tbe, "MARK", lambda event, name, words: routes.append(
+        name) if event == "route" else None)
+    x = np.random.default_rng(RNG_SEED + 6).integers(0, 2**32, (64, 1040),
+                                                     dtype=np.uint32)
+    for B, route in ((63, "rows"), (64, "rows-segmented")):
+        routes.clear()
+        (got,), _ = tbe.sort_words_rows(_words(x[:B].reshape(-1)), [],
+                                        (B, 1040))
+        assert routes[0] == route
+        assert_bits_equal(got.reshape(B, 1040), np.sort(x[:B], axis=1))
 
 
 def _bitonic_rows(rng, B, nr):
@@ -141,21 +162,31 @@ def test_2d_float_keys_descending_match_jax():
                       np.asarray(jk))
 
 
-def test_2d_u64_pairs_with_a_window_match_jax():
-    # (3, 1040): the row-segmented route at its default knobs, u64 keys
-    # carried (the window hides key bits) with a (B, n, 4) u128 payload
+def test_2d_u64_pairs_with_a_window_match_jax(monkeypatch):
+    # (3, 1040), u64 keys carried (the window hides key bits) with a
+    # (B, n, 4) u128 payload: padded rows (a batch below the Hopper floor),
+    # and the row-segmented route, as the JAX package takes it, with the
+    # floor lowered
     rng = np.random.default_rng(RNG_SEED + 3)
     x = rand_keys(rng, np.uint64, 3 * 1040).reshape(3, 1040)
     v = rng.integers(0, 2**32, size=(3, 1040, 4), dtype=np.uint32)
     jk, jv = jthrs.sort_pairs(jnp.asarray(x), jnp.asarray(v), start_bit=8,
                               end_bit=40, method="pallas")
     xt, vt = to_torch(x), to_torch(v)
-    k, vv = tthrs.sort_pairs(xt, vt, start_bit=8, end_bit=40)
-    assert vv.shape == (3, 1040, 4)
-    assert_bits_equal(k, np.asarray(jk))
-    assert_bits_equal(vv, np.asarray(jv))
-    assert_bits_equal(xt, x)
-    assert_bits_equal(vt, v)
+    routes = []
+    monkeypatch.setattr(tbe, "MARK", lambda event, name, words: routes.append(
+        name) if event == "route" else None)
+    for floor, route in ((None, "rows"), (0, "rows-segmented")):
+        if floor is not None:
+            monkeypatch.setattr(tbe, "_ROW_SEG_MIN_PADDED", floor)
+        routes.clear()
+        k, vv = tthrs.sort_pairs(xt, vt, start_bit=8, end_bit=40)
+        assert routes[0] == route
+        assert vv.shape == (3, 1040, 4)
+        assert_bits_equal(k, np.asarray(jk))
+        assert_bits_equal(vv, np.asarray(jv))
+        assert_bits_equal(xt, x)
+        assert_bits_equal(vt, v)
 
 
 def test_segment_ids_batched_match_jax():

@@ -73,15 +73,14 @@ def test_merge_sorted_runs_keys_only_duplicates_and_padded_merge():
                                      True, jbe.EngineTuning())
     assert_bits_equal(got, np.asarray(want))
     assert_bits_equal(got, np.sort(np.concatenate([ka, kb])))
-    # trunc_merge=False: the padded construction for a power-of-two a too
-    asc, desc = _runs(rng, 2048, 700)
-    padded = tbe._merge_sorted_runs(_words(*asc), _words(*desc), 2,
-                                    tbe.EngineTuning(trunc_merge=False))
-    want = jbe._merge_sorted_runs([jnp.asarray(w) for w in asc],
-                                  [jnp.asarray(w) for w in desc], 2, True,
-                                  jbe.EngineTuning(trunc_merge=False))
-    for g, w in zip(padded, want):
-        assert_bits_equal(g, np.asarray(w))
+    # a not a power of two: the padded construction, keys only
+    ka, kb = ka[:3000], kb[:2000]
+    (padded,) = tbe._merge_sorted_runs(_words(ka), _words(kb), 1,
+                                       tbe.EngineTuning())
+    (want,) = jbe._merge_sorted_runs([jnp.asarray(ka)], [jnp.asarray(kb)], 1,
+                                     True, jbe.EngineTuning())
+    assert_bits_equal(padded, np.asarray(want))
+    assert_bits_equal(padded, np.sort(np.concatenate([ka, kb])))
 
 
 def _count_segmented(monkeypatch):

@@ -58,15 +58,20 @@ Routes (all of them end in the same sweep kernel)
 * :func:`sort_words_rows`: rows padded to ``2**r`` and the network of
   stages ``1..r`` with stage ``r`` forced ascending, on a word length of
   ``b_pad * 2**r`` (a batch padded to a tile multiple, :func:`_row_plan`);
-  long non-power-of-two rows take :func:`_sort_segmented_rows`.
+  :func:`_sort_segmented_rows` for non-power-of-two rows of a batch large
+  enough to repay its small launches (:data:`_ROW_SEG_MIN_PADDED`).
 
 The sweeps run in place, so every buffer a sweep sees is one the engine
 allocated: a caller's tensors (a 32-bit payload's words are views of it)
 are copied once before the first sweep.
+
+:data:`MARK`, when set, observes the route each call takes and the parts
+of a segmented sort (for measurement; ``chip_smoke.py`` times them).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import os
@@ -228,25 +233,23 @@ class EngineTuning:
     which :data:`MIN_CHUNK_BITS` bounds from below.
 
     The routing knobs of non-power-of-two sizes keep the JAX package's
-    names and defaults (its on-chip crossovers were measured on a TPU; the
-    Hopper ones are open):
+    names:
 
     seg_pad_waste: a flat non-power-of-two ``n`` takes the segmented route
     (power-of-two prefix, the rest recursively, one truncated merge) when
-    padding it to ``2**L`` would waste more than this fraction.
-
-    trunc_merge: merge sorted runs with the truncated (virtual-sentinel)
-    merge where its shape allows; ``False`` always pads the merge.
+    padding it to ``2**L`` would waste more than this fraction. 0.15 is
+    the JAX package's TPU value; on an H100 the routes cross between 0.15
+    and 0.20 at 2**28 (PERF.md), and the retune is open.
 
     row_seg_waste, row_seg_min_nr: the same for the row length of batched
     sorts (``>= 1.0`` always pads rows); rows of at most
-    ``max(row_seg_min_nr, 32)`` elements are always padded.
+    ``max(row_seg_min_nr, 32)`` elements always pad, and so do batches
+    below :data:`_ROW_SEG_MIN_PADDED` padded elements.
     """
 
     smem_tile_bytes: int = 200 * 1024
     cross_g_max: int = 8
     seg_pad_waste: float = 0.15
-    trunc_merge: bool = True
     row_seg_waste: float = 0.24
     row_seg_min_nr: int = 1024
 
@@ -255,11 +258,8 @@ class EngineTuning:
         kw = {}
         for f in fields(cls):
             raw = os.environ.get(f"THRS_{f.name.upper()}")
-            if raw is None:
-                continue
-            # bool("0") is True: a bool knob is off only when it reads "0"
-            kind = type(f.default)
-            kw[f.name] = raw != "0" if kind is bool else kind(raw)
+            if raw is not None:
+                kw[f.name] = type(f.default)(raw)
         return cls(**kw)
 
 
@@ -492,13 +492,44 @@ def check_word_contract(cmp_words: list, carry_words: list) -> bool:
 
 
 #: nesting cap of the pow2-segment decomposition, and the size at which a
-#: truncated merge's upper chain materializes its sentinels. The JAX
-#: package needs both for an XLA:TPU layout; the port keeps them so that
-#: both packages cut a size into the same pieces. Whether Hopper wants
-#: other values is not measured yet.
+#: truncated merge's upper chain materializes its sentinels: the JAX
+#: package's values, which it needs for an XLA:TPU layout. The output does
+#: not depend on them (it is unique under the word contract); whether
+#: Hopper is faster without them is not measured yet.
 _MAX_SEG_DEPTH = 2
 _TAIL_MAX = 1 << 16
 _INT32_MIN = -(1 << 31)
+
+#: the fewest padded elements (``B * 2**r``) for which a batch of
+#: non-power-of-two rows takes the row-segmented route (Hopper's own; the
+#: JAX package has no such floor). The route's chain of small launches
+#: costs 1-4 ms whatever the batch: on an H100 at about 40% padding it
+#: lost at 2**25 padded elements and below (0.16-0.64x the padded time)
+#: and won at 2**26 and above (1.11-1.42x; PERF.md section 5).
+_ROW_SEG_MIN_PADDED = 1 << 26
+
+#: observer for measurement (``None``: off). Called as
+#: ``MARK(event, name, words)``: ``event="route"`` once per routing decision
+#: (``name`` one of "padded", "segmented", "rows", "rows-segmented"; the
+#: words it sorts), and ``"begin"``/``"end"`` around each part of a
+#: segmented sort ("prefix network", "recursive remainder", "dense levels",
+#: "merge sweeps"; parts nest, the outermost is the part).
+MARK = None
+
+
+def _mark_route(name: str, words: list) -> None:
+    if MARK is not None:
+        MARK("route", name, words)
+
+
+@contextlib.contextmanager
+def _part(name: str, words: list):
+    if MARK is None:
+        yield
+        return
+    MARK("begin", name, words)
+    yield
+    MARK("end", name, words)
 
 
 def _fill(i: int, ncmp: int) -> int:
@@ -565,10 +596,12 @@ def _sort_flat(words: list, ncmp: int, tuning: EngineTuning, depth: int,
     L = max(_ceil_log2(n), MIN_L)
     if (n > (1 << MIN_L) and n & (n - 1) and depth < _MAX_SEG_DEPTH
             and n < int((1 << L) * (1.0 - tuning.seg_pad_waste))):
+        _mark_route("segmented", words)
         if not owned:
             words = [w.clone(memory_format=torch.contiguous_format)
                      for w in words]
         return _sort_segmented(words, n, ncmp, tuning, depth)
+    _mark_route("padded", words)
     words = [common.pad_to_multiple(w, 1 << L, _fill(i, ncmp))
              for i, w in enumerate(words)]
     return [w[:n] for w in _run_network(words, ncmp, L, tuning)]
@@ -610,13 +643,14 @@ def _ce_pair(x_words: list, y_words: list, ncmp: int) -> tuple[list, list]:
     outside any kernel). Unsigned order without widening: a word with its
     sign bit flipped orders as int32 as the unsigned word does.
     """
-    xs = [w ^ _INT32_MIN for w in x_words[:ncmp]]
-    ys = [w ^ _INT32_MIN for w in y_words[:ncmp]]
-    swap = ys[-1] < xs[-1]  # y <lex x
-    for w in range(ncmp - 2, -1, -1):
-        swap = (ys[w] < xs[w]) | ((ys[w] == xs[w]) & swap)
-    mins = [torch.where(swap, y, x) for x, y in zip(x_words, y_words)]
-    maxs = [torch.where(swap, x, y) for x, y in zip(x_words, y_words)]
+    with _part("dense levels", x_words):
+        xs = [w ^ _INT32_MIN for w in x_words[:ncmp]]
+        ys = [w ^ _INT32_MIN for w in y_words[:ncmp]]
+        swap = ys[-1] < xs[-1]  # y <lex x
+        for w in range(ncmp - 2, -1, -1):
+            swap = (ys[w] < xs[w]) | ((ys[w] == xs[w]) & swap)
+        mins = [torch.where(swap, y, x) for x, y in zip(x_words, y_words)]
+        maxs = [torch.where(swap, x, y) for x, y in zip(x_words, y_words)]
     return mins, maxs
 
 
@@ -640,10 +674,11 @@ def _merge_pow2(words: list, ncmp: int, m: int,
     in place, so they must be buffers of the caller's own."""
     if m <= 1:
         return words
-    if m < (1 << MIN_L):
-        return _dense_merge(words, ncmp, m)
-    lg = m.bit_length() - 1
-    return _run_network(words, ncmp, lg, tuning, stages=[lg])
+    with _part("merge sweeps", words):
+        if m < (1 << MIN_L):
+            return _dense_merge(words, ncmp, m)
+        lg = m.bit_length() - 1
+        return _run_network(words, ncmp, lg, tuning, stages=[lg])
 
 
 def _merge_sorted_runs(asc_words: list, desc_words: list, ncmp: int,
@@ -660,8 +695,8 @@ def _merge_sorted_runs(asc_words: list, desc_words: list, ncmp: int,
     no-op, so each split level is computed densely on the real elements
     (slices and one :func:`_ce_pair`), every all-real half is an exact
     power of two merged by the stage-``log2`` sweeps with no padding, and
-    all-sentinel halves are dropped as bookkeeping. Other shapes, or
-    ``tuning.trunc_merge=False``, take :func:`_merge_sorted_runs_padded`.
+    all-sentinel halves are dropped as bookkeeping. Other shapes (for the
+    merge trees of a distributed sort) take :func:`_merge_sorted_runs_padded`.
     """
     a = asc_words[0].shape[0]
     b = desc_words[0].shape[0]
@@ -670,7 +705,7 @@ def _merge_sorted_runs(asc_words: list, desc_words: list, ncmp: int,
     if a == 0:
         return [torch.flip(w, (0,)) for w in desc_words]
     tuning = _tuning_or_env(tuning)
-    if a & (a - 1) or b > a or a < (1 << MIN_L) or not tuning.trunc_merge:
+    if a & (a - 1) or b > a or a < (1 << MIN_L):
         return _merge_sorted_runs_padded(asc_words, desc_words, ncmp, tuning)
     # virtual array [asc(a), SENT(a-b), desc(b)] of 2a. First split (stride
     # a): indices [0, a-b) face sentinels (no-ops); the rest compare-
@@ -738,10 +773,12 @@ def _sort_segmented(words: list, n: int, ncmp: int, tuning: EngineTuning,
     place: they are buffers of the sort's own, and ``w[:a]``, ``w[a:]`` are
     disjoint contiguous views of them."""
     a = 1 << (n.bit_length() - 1)
-    left = _run_network([w[:a] for w in words], ncmp, a.bit_length() - 1,
-                        tuning)
-    right = _sort_flat([w[a:] for w in words], ncmp, tuning, depth + 1,
-                       owned=True)
+    left = [w[:a] for w in words]
+    with _part("prefix network", left):
+        left = _run_network(left, ncmp, a.bit_length() - 1, tuning)
+    right = [w[a:] for w in words]
+    with _part("recursive remainder", right):
+        right = _sort_flat(right, ncmp, tuning, depth + 1, owned=True)
     right = [torch.flip(w, (0,)) for w in right]
     return _merge_sorted_runs(left, right, ncmp, tuning)
 
@@ -805,7 +842,9 @@ def sort_words_rows(cmp_words: list, carry_words: list, shape, *,
     in a bit below ``r``, so rows never interact and the work is ``B``
     times one row's. The batch pads only to a tile multiple
     (:func:`_row_plan`). A non-power-of-two row whose padding would waste
-    more than ``tuning.row_seg_waste`` takes :func:`_sort_segmented_rows`.
+    more than ``tuning.row_seg_waste``, in a batch of at least
+    :data:`_ROW_SEG_MIN_PADDED` padded elements, takes
+    :func:`_sort_segmented_rows`.
     Same word contract as :func:`sort_words`, per row;
     ``allow_tied_carries`` needs power-of-two rows (batch sentinel rows are
     safe, in-row sentinels are not).
@@ -823,9 +862,12 @@ def sort_words_rows(cmp_words: list, carry_words: list, shape, *,
     words = list(cmp_words) + list(carry_words)
     if (nr & (nr - 1) and _seg_depth < _MAX_SEG_DEPTH
             and nr > max(tuning.row_seg_min_nr, 32)
+            and B << r >= _ROW_SEG_MIN_PADDED
             and nr < int((1 << r) * (1.0 - tuning.row_seg_waste))):
+        _mark_route("rows-segmented", words)
         words = _sort_segmented_rows(words, B, nr, ncmp, tuning, _seg_depth)
         return words[:ncmp], words[ncmp:]
+    _mark_route("rows", words)
     T, b_pad = _row_plan(B, r, nwords, tuning)
     words = [_pad_rows(w, B, nr, r, b_pad, _fill(i, ncmp))
              for i, w in enumerate(words)]
