@@ -62,7 +62,19 @@ Phases, one output line each (time, kernel launches, result):
 10. timing of the new kernels and engine: the histogram at 2**28 beside its
    plain version, torch.bincount and its bound; counting sort_keys u32 at
    2**28 beside torch.sort and the bitonic sort_keys, with its per-stage
-   breakdown.
+   breakdown;
+11. the distributed sort on a one-rank NCCL group (NCCL allows one rank per
+   card): psort_keys ascending and descending, psort_pairs with a u32
+   payload and psort_indices of 2**28 u32 keys drawn as
+   np.minimum(zipf(1.3), 2**31), each bit-exact against numpy (np.sort, a
+   stable argsort) and required to launch the sweep kernel, timed beside
+   sort_keys/sort_pairs/sort_indices of the same keys; then rank 0's local
+   work at the shapes of an 8-rank group with B = 2**28 per rank (the
+   capacities from psort's own arithmetic): the local sort of B tuples, the
+   binary-counter merges of 8 sentinel-padded runs of length cap, and the
+   rebalance merge of a kept run with 8 pieces of length cap3, each timed
+   and bit-equal to a stable torch.sort lexsort of the same words, each
+   merge's route read at the engine's MARK hook.
 
 The line before the last is the kernel report, {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero
@@ -76,9 +88,11 @@ import dataclasses
 import json
 import os
 import re
+import socket
 import statistics
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 # the run uses one card: the first, unless the caller chose one
@@ -89,6 +103,8 @@ import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+import torch.distributed as dist  # noqa: E402
+
 import tinyhipradixsort_torch as thrs  # noqa: E402
 from tinyhipradixsort_torch import keybits  # noqa: E402
 from tinyhipradixsort_torch.ops import bitonic_engine as be  # noqa: E402
@@ -96,6 +112,8 @@ from tinyhipradixsort_torch.ops import counting_engine  # noqa: E402
 from tinyhipradixsort_torch.ops import cuda_lib  # noqa: E402
 from tinyhipradixsort_torch.ops import histogram as hist  # noqa: E402
 from tinyhipradixsort_torch.ops import network_engine  # noqa: E402
+from tinyhipradixsort_torch.parallel import multihost  # noqa: E402
+from tinyhipradixsort_torch.parallel import psort  # noqa: E402
 from tinyhipradixsort_torch.tools import H100_BYTES_PER_S  # noqa: E402
 from tinyhipradixsort_torch.tools import card as card_line  # noqa: E402
 from tinyhipradixsort_torch.tools import cuda_ms  # noqa: E402
@@ -1330,6 +1348,270 @@ def phase_counting_timing(x: torch.Tensor, bitonic_ms: float,
         f"after a warm-up, CUDA events between stages; card: {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the distributed sort on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+#: keys per call at world size 1, and per rank of the 8-rank local work
+PSORT_N = 1 << 28
+PSORT_RANKS = 8
+
+
+def zipf_keys(n: int, seed: int) -> np.ndarray:
+    """n u32 keys drawn as np.minimum(zipf(1.3), 2**31) (BASELINE config
+    5's skew), by 8 threads with generators spawned from ``seed``."""
+    parts = 8
+    seqs = np.random.SeedSequence(seed).spawn(parts)
+    bounds = [n * i // parts for i in range(parts + 1)]
+    out = np.empty(n, np.uint32)
+
+    def fill(i):
+        z = np.random.default_rng(seqs[i]).zipf(1.3, bounds[i + 1] - bounds[i])
+        out[bounds[i]:bounds[i + 1]] = np.minimum(z, 2**31)
+
+    with ThreadPoolExecutor(parts) as pool:
+        list(pool.map(fill, range(parts)))
+    return out
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A u32/i32 card tensor as host uint32 bits."""
+    return t.view(torch.int32).cpu().numpy().view(np.uint32)
+
+
+def _one_rank_group() -> None:
+    """A one-rank NCCL group over the loopback address: NCCL allows one
+    rank per card, and this run has one card."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(backend="nccl",
+                         init_method=f"tcp://127.0.0.1:{port}",
+                         world_size=1, rank=0)
+
+
+def _lexsorted(words: list) -> list:
+    """The words in the stable torch.sort lexsort order (the plain version
+    of every local sort and merge of psort)."""
+    perm = psort._lexsort_perm(words)
+    return [w[perm] for w in words]
+
+
+def _same(got: list, want: list) -> bool:
+    return all(torch.equal(g[:w.shape[0]], w) for g, w in zip(got, want))
+
+
+def phase_psort_main(card: str) -> int:
+    """psort_keys (both orders), psort_pairs and psort_indices of 2**28 zipf
+    keys at world size 1, through the public entry points: the kernel
+    launches of these four calls (the counts set to 0 just before), each
+    output bit-exact against numpy, and each call timed (median of 5, CUDA
+    events) beside the single-card sort of the same keys."""
+    rng_seed = SEED + 11
+    t0 = time.perf_counter()
+    x = zipf_keys(PSORT_N, rng_seed)
+    v = np.random.default_rng(rng_seed).integers(0, 2**32, PSORT_N,
+                                                 dtype=np.uint32)
+    distinct = len(np.unique(x[:1 << 20]))
+    log("11 psort", f"{PSORT_N} zipf(1.3) u32 keys ({distinct} distinct in "
+        f"the first 2**20) and u32 payloads made in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    def numpy_oracle():
+        # the stable argsort, from np.sort of the distinct composite keys
+        # key * 2**28 + index (keys <= 2**31: 59 bits); numpy's sorts
+        # release the GIL, so this runs beside the card's work
+        comp = np.sort((x.astype(np.uint64) << np.uint64(28))
+                       | np.arange(PSORT_N, dtype=np.uint64))
+        return ((comp & np.uint64((1 << 28) - 1)).astype(np.int64),
+                (comp >> np.uint64(28)).astype(np.uint32))
+
+    pool = ThreadPoolExecutor(1)
+    oracle = pool.submit(numpy_oracle)
+    xd, vd = torch.from_numpy(x).cuda(), torch.from_numpy(v).cuda()
+    # each psort call, and the single-card sort of the same keys
+    calls = {
+        "psort_keys": (lambda: thrs.psort_keys(xd),
+                       lambda: thrs.sort_keys(xd)),
+        "psort_keys descending": (
+            lambda: thrs.psort_keys(xd, order="descending"),
+            lambda: thrs.sort_keys(xd, order="descending")),
+        "psort_pairs": (lambda: thrs.psort_pairs(xd, vd),
+                        lambda: thrs.sort_pairs(xd, vd)),
+        "psort_indices": (lambda: thrs.psort_indices(xd),
+                          lambda: thrs.sort_indices(xd)),
+    }
+    got, routes = {}, []
+    be.KERNEL_LAUNCHES = 0
+    be.MARK = lambda event, name, words: (
+        routes.append(name) if event == "route" else None)
+    try:
+        for label, (run, _) in calls.items():
+            out = run()
+            got[label] = [_host(t) for t in
+                          (out if isinstance(out, tuple) else (out,))]
+    finally:
+        be.MARK = None
+    launches = be.KERNEL_LAUNCHES
+    log("11 psort", f"main path (world size 1, 4 calls): sweep kernel "
+        f"launches={launches}, routes {routes}")
+    if launches == 0:
+        raise AssertionError("psort did not launch the sweep kernel")
+    for label, (run, single) in calls.items():
+        ms, single_ms = cuda_ms(run, 5), cuda_ms(single, 5)
+        log("11 psort", f"{label} u32 n=2**28 zipf(1.3), world size 1: "
+            f"{ms:.3f} ms, {label[1:].replace('psort', 'sort')} of the same "
+            f"keys {single_ms:.3f} ms (psort's own {ms - single_ms:.3f} ms); "
+            f"median of 5, CUDA events; card: {card}")
+    del xd, vd
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    perm, srt = oracle.result()
+    pool.shutdown()
+    checks = {
+        "psort_keys": [srt],
+        "psort_keys descending": [srt[::-1]],
+        "psort_pairs": [srt, v[perm]],
+        "psort_indices": [perm.astype(np.uint32)],
+    }
+    for label, want in checks.items():
+        ok = all(np.array_equal(g, w) for g, w in zip(got[label], want))
+        log("11 psort", f"{label}: {'bit-exact' if ok else 'MISMATCH'} vs "
+            "numpy (np.sort; stable argsort)")
+        if not ok:
+            raise AssertionError(f"psort output wrong: {label}")
+    log("11 psort", f"numpy checks waited {time.perf_counter() - t0:.3f} s")
+    return launches
+
+
+def phase_psort_local(card: str) -> None:
+    """Rank 0's local work in an 8-rank group with B = 2**28 per rank, at
+    psort's own capacities: the local sort of B (key, index) tuples, the
+    binary-counter merges of 8 sentinel-padded runs of length cap (built
+    round-robin from the sorted tuples, 2**25 real each, as the ring
+    delivers them), and the rebalance merge of the sorted B with 8 pieces
+    of length cap3. Each is timed (median of 5, CUDA events) and held
+    bit-equal to the stable torch.sort lexsort of the same words."""
+    plan = psort.capacity_plan(PSORT_RANKS * PSORT_N, PSORT_RANKS)
+    B, cap, cap3 = plan.B, plan.cap, plan.cap3
+    log("11 psort", f"P={PSORT_RANKS} shapes: B={B} cap={cap} cap3={cap3} "
+        f"(8*cap={PSORT_RANKS * cap} pads to "
+        f"2**{(PSORT_RANKS * cap - 1).bit_length()})")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 8)
+    keys = torch.from_numpy(zipf_keys(B, SEED + 8)).cuda().view(torch.int32)
+    words = [keys, torch.arange(B, dtype=torch.int32, device="cuda")]
+
+    def measure(label, fn, want):
+        routes = []
+        be.MARK = lambda event, name, w: (
+            routes.append(name) if event == "route" else None)
+        try:
+            out = fn()
+        finally:
+            be.MARK = None
+        torch.cuda.synchronize()
+        ok = _same(out, want)
+        ms = cuda_ms(fn, 5)
+        kinds = {r: routes.count(r) for r in dict.fromkeys(routes)}
+        log("11 psort", f"P={PSORT_RANKS} local work, {label}: {ms:.3f} ms; "
+            f"routes {kinds}; {'bit-equal' if ok else 'MISMATCH'} to the "
+            f"torch.sort lexsort; median of 5, CUDA events; card: {card}")
+        if not ok:
+            raise AssertionError(f"psort local work wrong: {label}")
+        return out
+
+    srt = measure("local sort of B", lambda: be.sort_words(words, [])[0],
+                  _lexsorted(words))
+    del keys, words
+    # 8 runs as the ring delivers them: each sorted, 2**25 real, then fill
+    real = B // PSORT_RANKS
+    runs = []
+    for r in range(PSORT_RANKS):
+        run = torch.full((2, cap), psort.SENTINEL, dtype=torch.int32,
+                         device="cuda")
+        run[0, :real] = srt[0][r::PSORT_RANKS]
+        run[1, :real] = srt[1][r::PSORT_RANKS]
+        runs.append(list(run))
+
+    def fold():
+        tree = psort.RunTree(2, "bitonic")
+        for run in runs:
+            tree.push(run)
+        return tree.result()
+
+    measure("merges of 8 runs of cap", fold,
+            _lexsorted([torch.cat(ws) for ws in zip(*runs)]))
+    merge_breakdown(fold, card)
+    del runs
+    torch.cuda.empty_cache()
+    # rebalance: the sorted B kept, 8 boundary pieces of cap3 (each a
+    # sorted run of 64 tuples with later indices, then fill)
+    pieces = torch.full((2, 8, cap3), psort.SENTINEL, dtype=torch.int32,
+                        device="cuda")
+    pick = torch.randint(0, B, (8, 64), generator=gen, device="cuda")
+    for i in range(8):
+        piece = _lexsorted([srt[0][pick[i]],
+                            B + torch.arange(i * 64, (i + 1) * 64,
+                                             dtype=torch.int32,
+                                             device="cuda")])
+        pieces[0, i, :64], pieces[1, i, :64] = piece
+    recv = [pieces[0].reshape(-1), pieces[1].reshape(-1)]
+    measure("rebalance merge (B + 8 pieces of cap3)",
+            lambda: psort.rebalance_merge(srt, recv, 2, 8, cap3, "bitonic"),
+            _lexsorted([torch.cat([a, b]) for a, b in zip(srt, recv)]))
+    del srt, recv, pieces
+    torch.cuda.empty_cache()
+
+
+def merge_breakdown(fold, card: str) -> None:
+    """Device time of each merge of the 8-run fold: CUDA events at the
+    engine's MARK hook where each merge takes its route (so each span also
+    holds the flip of the next merge's second run), median of 3 passes
+    after a warm-up."""
+    passes, merges = [], []
+    for rep in range(4):
+        marks = []
+
+        def mark(event, name, words):
+            if event == "route":
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                marks.append((name, int(words[0].shape[0]), ev))
+
+        be.MARK = mark
+        try:
+            fold()
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+        finally:
+            be.MARK = None
+        torch.cuda.synchronize()
+        evs = [ev for _, _, ev in marks] + [end]
+        if rep:
+            passes.append([a.elapsed_time(b) for a, b in zip(evs, evs[1:])])
+        else:
+            merges = [(name, a) for name, a, _ in marks]
+    for (name, a), ms in zip(merges, (statistics.median(c)
+                                      for c in zip(*passes))):
+        m = 1 << max((2 * a - 1).bit_length(), be.MIN_L)
+        how = (f"a network on 2**{m.bit_length() - 1}, {2 * a / m:.3f} of "
+               "it real" if name == "merge-padded" else "no padding")
+        log("11 psort", f"P={PSORT_RANKS} local work, merge of {a}+{a} "
+            f"({name}: {how}): {ms:.3f} ms; median of 3, CUDA events; "
+            f"card: {card}")
+
+
+def phase_psort(card: str) -> int:
+    _one_rank_group()
+    try:
+        launches = phase_psort_main(card)
+        phase_psort_local(card)
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an "
@@ -1389,6 +1671,12 @@ def main() -> int:
     h = phase_histogram_timing(x, card)
     phase_counting_timing(x, sort_ms, card)
     del x
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    psort_launches = phase_psort(card)
+    log("11 psort", f"done in {time.perf_counter() - t0:.3f} s, sweep kernel "
+        f"launches on the psort main path={psort_launches}")
     log("done", f"{time.perf_counter() - t_all:.3f} s in all")
 
     def entry(name, launches, err, ms, plain_ms, nbytes, ops, library_ms):
@@ -1410,7 +1698,9 @@ def main() -> int:
     sweep = _plan(28, 1, be.EngineTuning())[0]
     print(card, flush=True)
     print(json.dumps({"kernels": [
-        entry("bitonic_sweep", launches, worst, kernel_ms, plain_ms,
+        # launches: the bitonic main path (phase 4) and psort's (phase 11)
+        entry("bitonic_sweep", launches + psort_launches, worst, kernel_ms,
+              plain_ms,
               2 * 4 * (1 << 28), 2 * len(sweep.substages) * (1 << 27), None),
         # digit extraction: a shift, a mask and an add per word
         entry("digit_histogram", hist_launches, hist_err, h["ms"],

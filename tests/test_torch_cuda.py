@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels on the card (the bitonic sweep, the digit
 histogram and the two probes): against their plain PyTorch versions,
-through the public entry points (the bitonic and the portable engines), and
-their input checks. Marked ``cuda``; each test skips where
+through the public entry points (the bitonic and the portable engines, a
+donated sort, the distributed sort on a one-rank NCCL group), and their
+input checks. Marked ``cuda``; each test skips where
 ``torch.cuda.is_available()`` is false.
 
 On a machine with an NVIDIA Hopper GPU:
@@ -16,10 +17,12 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import tinyhipradixsort_torch as tthrs
 from tinyhipradixsort_torch.ops import bitonic_engine as tbe
 from tinyhipradixsort_torch.ops import histogram as th
+from tinyhipradixsort_torch.parallel import multihost
 from tinyhipradixsort_torch.tools import gather_floor as tgf
 from tinyhipradixsort_torch.tools import partition_dma_floor as tpd
 
@@ -189,6 +192,9 @@ def test_kernel_matches_plain_version_on_row_networks(cuda, nwords, ncmp, B,
             assert torch.equal(g, w), (stages, T, b_pad)
 
 
+BITONIC = "bitonic"  # named: "auto" is argsort on CPU tensors
+
+
 def test_new_bitonic_paths_on_the_card(cuda, monkeypatch):
     # the paths of the segmented route, the rows, segment_ids=, 16-bit keys
     # and stable=False, each against the same call on CPU tensors (the
@@ -200,16 +206,21 @@ def test_new_bitonic_paths_on_the_card(cuda, monkeypatch):
     seg = np.sort(rng.integers(0, 100, size=150_001)).astype(np.int32)
     pay = rng.integers(0, 2**32, size=150_001, dtype=np.uint32)
     calls = [
-        ("segmented keys", lambda d: tthrs.sort_keys(d(x))),
-        ("segmented pairs", lambda d: tthrs.sort_pairs(d(x), d(pay))),
-        ("rows 64x1040", lambda d: tthrs.sort_pairs(d(rows), d(rows))),
-        ("rows 64x1024", lambda d: tthrs.sort_keys(d(rows[:, :1024]))),
-        ("segment_ids", lambda d: tthrs.sort_indices(d(x),
-                                                     segment_ids=d(seg))),
+        ("segmented keys", lambda d: tthrs.sort_keys(d(x), method=BITONIC)),
+        ("segmented pairs", lambda d: tthrs.sort_pairs(d(x), d(pay),
+                                                       method=BITONIC)),
+        ("rows 64x1040", lambda d: tthrs.sort_pairs(d(rows), d(rows),
+                                                    method=BITONIC)),
+        ("rows 64x1024", lambda d: tthrs.sort_keys(d(rows[:, :1024]),
+                                                   method=BITONIC)),
+        ("segment_ids", lambda d: tthrs.sort_indices(
+            d(x), segment_ids=d(seg), method=BITONIC)),
         ("f16", lambda d: tthrs.sort_keys(d(raw.view(np.int16))
-                                          .view(torch.float16))),
+                                          .view(torch.float16),
+                                          method=BITONIC)),
         ("bf16 pairs", lambda d: tthrs.sort_pairs(
-            d(raw.view(np.int16)).view(torch.bfloat16), d(raw))),
+            d(raw.view(np.int16)).view(torch.bfloat16), d(raw),
+            method=BITONIC)),
     ]
     for label, fn in calls:
         before = tbe.KERNEL_LAUNCHES
@@ -351,3 +362,52 @@ def test_partition_scatter_kernel_matches_plain_version(cuda, r, t):
     got = tpd.partition_scatter(offs, src, r)
     assert tpd.KERNEL_LAUNCHES == before + 1
     assert torch.equal(got, tpd.partition_scatter_reference(offs, src, r))
+
+
+def test_a_donated_sort_takes_less_memory(cuda):
+    # u32 keys-only at a power of two: the one word is a view of the keys,
+    # so the donated network sweeps them in place and allocates no copy
+    n = 1 << 26
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(26)
+    src = torch.randint(-2**31, 2**31, (n,), generator=gen, device=cuda,
+                        dtype=torch.int64).to(torch.int32).view(torch.uint32)
+    want = torch.sort(src.view(torch.int32) ^ -2**31, stable=True)[0]
+    peaks = {}
+    for donate in (False, True):
+        keys = src.clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = tthrs.sort_keys(keys, donate=donate)
+        torch.cuda.synchronize()
+        peaks[donate] = torch.cuda.max_memory_allocated() - base
+        assert (out is keys) == donate
+        assert torch.equal(out.view(torch.int32) ^ -2**31, want)
+        del keys, out
+    assert peaks[True] < peaks[False], peaks
+    assert peaks[True] < n, peaks  # below a quarter of the keys' bytes
+
+
+def test_psort_pairs_on_a_one_rank_nccl_group(cuda, tmp_path):
+    rng = np.random.default_rng(20)
+    n = 1 << 20
+    x = np.minimum(rng.zipf(1.3, size=n), 2**31).astype(np.uint32)
+    v = rng.integers(0, 2**32, size=n, dtype=np.uint32)
+    multihost.initialize(backend="nccl",
+                         init_method=f"file://{tmp_path / 'store'}",
+                         world_size=1, rank=0)
+    try:
+        before = tbe.KERNEL_LAUNCHES
+        k, vv, overflow = tthrs.psort_pairs(torch.from_numpy(x).to(cuda),
+                                            torch.from_numpy(v).to(cuda),
+                                            check=True)
+        assert tbe.KERNEL_LAUNCHES > before and not overflow
+        perm = tthrs.psort_indices(torch.from_numpy(x).to(cuda))
+    finally:
+        dist.destroy_process_group()
+    p = np.argsort(x, kind="stable")
+    assert k.is_cuda and vv.is_cuda
+    np.testing.assert_array_equal(_bits(k), x[p])
+    np.testing.assert_array_equal(_bits(vv), v[p])
+    np.testing.assert_array_equal(perm.cpu().numpy(), p)

@@ -16,6 +16,7 @@ import tinyhipradixsort_torch.sort, tinyhipradixsort_torch.config
 from tinyhipradixsort_torch.ops import bitonic_engine, cuda_lib, network_engine
 from tinyhipradixsort_torch.ops import argsort_engine, counting_engine, histogram
 from tinyhipradixsort_torch.tools import gather_floor, partition_dma_floor
+from tinyhipradixsort_torch.parallel import multihost, psort
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "triton"))
 assert not loaded, loaded
@@ -54,7 +55,8 @@ def test_a_reused_library_keeps_its_build_log(tmp_path, monkeypatch):
 
 def test_port_sources_never_import_jax():
     pkg = ROOT / "tinyhipradixsort_torch"
-    for path in [*pkg.rglob("*.py"), ROOT / "chip_smoke.py"]:
+    for path in [*pkg.rglob("*.py"), ROOT / "chip_smoke.py",
+                 ROOT / "tests" / "_torch_psort_worker.py"]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]):

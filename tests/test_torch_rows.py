@@ -139,12 +139,13 @@ def test_2d_keys_match_jax():
     jk, jv = jthrs.sort_pairs(jnp.asarray(x), jnp.asarray(v),
                               method="pallas")
     xt, vt = to_torch(x), to_torch(v)
-    k, vv = tthrs.sort_pairs(xt, vt)
+    k, vv = tthrs.sort_pairs(xt, vt, method="bitonic")
     assert k.shape == (6, 500) and vv.shape == (6, 500)
     assert_bits_equal(k, np.asarray(jk))
     assert_bits_equal(vv, np.asarray(jv))
-    assert_bits_equal(tthrs.sort_keys(xt), np.sort(x, axis=1))
-    perm = tthrs.sort_indices(xt)
+    assert_bits_equal(tthrs.sort_keys(xt, method="bitonic"),
+                      np.sort(x, axis=1))
+    perm = tthrs.sort_indices(xt, method="bitonic")
     assert perm.dtype == torch.int32
     np.testing.assert_array_equal(perm.numpy(),
                                   np.argsort(x, axis=1, kind="stable"))
@@ -158,7 +159,8 @@ def test_2d_float_keys_descending_match_jax():
     x = rand_keys(rng, np.float32, 5 * 300).reshape(5, 300)
     x[:, :4] = np.array([-0.0, 0.0, -0.0, np.nan], dtype=np.float32)
     jk = jthrs.sort_keys(jnp.asarray(x), order="descending", method="pallas")
-    assert_bits_equal(tthrs.sort_keys(to_torch(x), order="descending"),
+    assert_bits_equal(tthrs.sort_keys(to_torch(x), order="descending",
+                                      method="bitonic"),
                       np.asarray(jk))
 
 
@@ -180,7 +182,8 @@ def test_2d_u64_pairs_with_a_window_match_jax(monkeypatch):
         if floor is not None:
             monkeypatch.setattr(tbe, "_ROW_SEG_MIN_PADDED", floor)
         routes.clear()
-        k, vv = tthrs.sort_pairs(xt, vt, start_bit=8, end_bit=40)
+        k, vv = tthrs.sort_pairs(xt, vt, start_bit=8, end_bit=40,
+                                 method="bitonic")
         assert routes[0] == route
         assert vv.shape == (3, 1040, 4)
         assert_bits_equal(k, np.asarray(jk))
@@ -197,7 +200,7 @@ def test_segment_ids_batched_match_jax():
     jk, jv = jthrs.sort_pairs(jnp.asarray(x), jnp.asarray(v),
                               segment_ids=jnp.asarray(seg), method="pallas")
     k, vv = tthrs.sort_pairs(to_torch(x), to_torch(v),
-                             segment_ids=to_torch(seg))
+                             segment_ids=to_torch(seg), method="bitonic")
     assert_bits_equal(k, np.asarray(jk))
     assert_bits_equal(vv, np.asarray(jv))
     for row in range(4):
@@ -218,7 +221,8 @@ def test_unstable_rows(monkeypatch):
     for nr in (256, 300):  # power-of-two rows drop the index; others not
         x = rng.integers(0, 16, size=(4, nr)).astype(np.uint32)
         v = rng.integers(0, 2**32, size=(4, nr), dtype=np.uint32)
-        k, vv = tthrs.sort_pairs(to_torch(x), to_torch(v), stable=False)
+        k, vv = tthrs.sort_pairs(to_torch(x), to_torch(v), stable=False,
+                                 method="bitonic")
         assert_bits_equal(k, np.sort(x, axis=1))
         got = np.stack([ubits(k), ubits(vv)], axis=-1)
         for row in range(4):

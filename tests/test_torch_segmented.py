@@ -160,13 +160,13 @@ def test_nonpow2_pairs_match_jax_and_leave_inputs(dtype):
     jk, jv = jthrs.sort_pairs(jnp.asarray(x), jnp.asarray(vals),
                               method="pallas")
     xt, vt = to_torch(x), to_torch(vals)
-    k, v = tthrs.sort_pairs(xt, vt)
+    k, v = tthrs.sort_pairs(xt, vt, method="bitonic")
     assert_bits_equal(k, np.asarray(jk))
     assert_bits_equal(v, np.asarray(jv))
     assert_bits_equal(xt, x)
     assert_bits_equal(vt, vals)
-    np.testing.assert_array_equal(tthrs.sort_indices(xt).numpy(),
-                                  oracles.oracle_perm(x))
+    np.testing.assert_array_equal(
+        tthrs.sort_indices(xt, method="bitonic").numpy(), oracles.oracle_perm(x))
 
 
 def _segments(rng, n, nseg):
@@ -180,8 +180,8 @@ def test_segment_ids_flat_match_jax():
     seg = _segments(rng, n, 17)
     jk = jthrs.sort_keys(jnp.asarray(x), segment_ids=jnp.asarray(seg),
                          method="pallas")
-    assert_bits_equal(tthrs.sort_keys(to_torch(x), segment_ids=to_torch(seg)),
-                      np.asarray(jk))
+    assert_bits_equal(tthrs.sort_keys(to_torch(x), segment_ids=to_torch(seg),
+                                      method="bitonic"), np.asarray(jk))
     # heavy duplicates: stability within each segment, and the permutation
     x = rng.integers(0, 5, size=1500).astype(np.uint32)
     seg = _segments(rng, 1500, 6)
@@ -189,10 +189,11 @@ def test_segment_ids_flat_match_jax():
     jk, jv = jthrs.sort_pairs(jnp.asarray(x), jnp.asarray(v),
                               segment_ids=jnp.asarray(seg), method="pallas")
     k, vv = tthrs.sort_pairs(to_torch(x), to_torch(v),
-                             segment_ids=to_torch(seg))
+                             segment_ids=to_torch(seg), method="bitonic")
     assert_bits_equal(k, np.asarray(jk))
     assert_bits_equal(vv, np.asarray(jv))
-    perm = tthrs.sort_indices(to_torch(x), segment_ids=to_torch(seg))
+    perm = tthrs.sort_indices(to_torch(x), segment_ids=to_torch(seg),
+                              method="bitonic")
     np.testing.assert_array_equal(perm.numpy(), np.lexsort((x, seg)))
 
 
@@ -207,7 +208,7 @@ def test_segment_ids_dtypes_match_jax(dtype, order):
     jk = jthrs.sort_keys(jnp.asarray(x), order=order,
                          segment_ids=jnp.asarray(seg), method="pallas")
     got = tthrs.sort_keys(to_torch(x), order=order,
-                          segment_ids=to_torch(seg))
+                          segment_ids=to_torch(seg), method="bitonic")
     assert_bits_equal(got, np.asarray(jk))
 
 
@@ -224,7 +225,8 @@ def test_16bit_keys_match_jax(dtype):
     x[:6] = np.array([0, 0x8000, 0x8000, 0, 0x7E01, 0xFE02],
                      dtype=np.uint16).view(dtype)
     jk = jthrs.sort_keys(jnp.asarray(x), method="pallas")
-    assert_bits_equal(tthrs.sort_keys(to_torch(x)), np.asarray(jk))
+    assert_bits_equal(tthrs.sort_keys(to_torch(x), method="bitonic"),
+                      np.asarray(jk))
 
 
 @pytest.mark.parametrize("dtype", [np.dtype(np.float16), BF16],
@@ -235,12 +237,14 @@ def test_16bit_float_pairs_and_indices_match_jax(dtype):
     v = rng.integers(0, 2**16, size=3000, dtype=np.uint16).view(dtype)
     jk, jv = jthrs.sort_pairs(jnp.asarray(x), jnp.asarray(v),
                               order="descending", method="pallas")
-    k, vv = tthrs.sort_pairs(to_torch(x), to_torch(v), order="descending")
+    k, vv = tthrs.sort_pairs(to_torch(x), to_torch(v), order="descending",
+                             method="bitonic")
     assert_bits_equal(k, np.asarray(jk))
     assert_bits_equal(vv, np.asarray(jv))  # NaN payloads of the values too
     want = np.argsort(tthrs.np_key_bits(x, descending=True), kind="stable")
     np.testing.assert_array_equal(
-        tthrs.sort_indices(to_torch(x), order="descending").numpy(), want)
+        tthrs.sort_indices(to_torch(x), order="descending",
+                           method="bitonic").numpy(), want)
 
 
 def _words_moved(monkeypatch):
@@ -274,8 +278,9 @@ def test_unstable_pairs_drop_the_index_word(monkeypatch):
     jk, _ = jthrs.sort_pairs(jnp.asarray(x), jnp.asarray(vals),
                              stable=False, method="pallas")
     moved = _words_moved(monkeypatch)
-    k, v = tthrs.sort_pairs(to_torch(x), to_torch(vals), stable=False)
-    ks, vs = tthrs.sort_pairs(to_torch(x), to_torch(vals))
+    k, v = tthrs.sort_pairs(to_torch(x), to_torch(vals), stable=False,
+                            method="bitonic")
+    ks, vs = tthrs.sort_pairs(to_torch(x), to_torch(vals), method="bitonic")
     assert moved == [2, 3]  # key, value; key, index, value
     assert_bits_equal(k, np.asarray(jk))
     _check_unstable(k, v, x, vals)
@@ -295,7 +300,8 @@ def test_unstable_pairs_stay_stable_where_the_sort_pads(monkeypatch):
         x = rng.integers(0, 8, size=n).astype(np.uint32)
         x[:4] = 0xFFFFFFFF  # ties the sentinel
         vals = np.arange(n, dtype=np.uint32)
-        k, v = tthrs.sort_pairs(to_torch(x), to_torch(vals), stable=False)
+        k, v = tthrs.sort_pairs(to_torch(x), to_torch(vals), stable=False,
+                                method="bitonic")
         perm = np.argsort(x, kind="stable")
         assert_bits_equal(k, x[perm])
         assert_bits_equal(v, vals[perm])

@@ -36,10 +36,11 @@ def test_window_parity(dtype, n, start, end):
     jk, jv = jthrs.sort_pairs(jnp.asarray(x), jnp.asarray(vals),
                               start_bit=start, end_bit=end, method="pallas")
     k, v = tthrs.sort_pairs(to_torch(x), to_torch(vals), start_bit=start,
-                            end_bit=end)
+                            end_bit=end, method="bitonic")
     assert_bits_equal(k, np.asarray(jk))
     assert_bits_equal(v, np.asarray(jv))
-    perm = tthrs.sort_indices(to_torch(x), start_bit=start, end_bit=end)
+    perm = tthrs.sort_indices(to_torch(x), start_bit=start, end_bit=end,
+                              method="bitonic")
     np.testing.assert_array_equal(
         perm.numpy(), oracles.oracle_perm(x, start_bit=start, end_bit=end))
 
@@ -54,18 +55,19 @@ def test_float_specials_tagged_zero_parity(dtype, order):
     x[:8] = np.array([-0.0, 0.0, -0.0, tiny / 4, -tiny / 4, -np.inf, np.inf,
                       -0.0], dtype=dtype)
     jk = jthrs.sort_keys(jnp.asarray(x), order=order, method="pallas")
-    assert_bits_equal(tthrs.sort_keys(to_torch(x), order=order),
-                      np.asarray(jk))
+    assert_bits_equal(tthrs.sort_keys(to_torch(x), order=order,
+                                      method="bitonic"), np.asarray(jk))
     jp = jthrs.sort_indices(jnp.asarray(x), order=order, method="pallas")
     np.testing.assert_array_equal(
-        tthrs.sort_indices(to_torch(x), order=order).numpy(), np.asarray(jp))
+        tthrs.sort_indices(to_torch(x), order=order,
+                           method="bitonic").numpy(), np.asarray(jp))
 
 
 def test_zeros_exact_false_parity():
     x = np.array([3.5, -0.0, 0.0, -1.25, np.inf, -np.inf, np.nan] * 150,
                  dtype=np.float32)
     jk = jthrs.sort_keys(jnp.asarray(x), method="pallas", zeros_exact=False)
-    got = tthrs.sort_keys(to_torch(x), zeros_exact=False)
+    got = tthrs.sort_keys(to_torch(x), zeros_exact=False, method="bitonic")
     assert_bits_equal(got, np.asarray(jk))
     assert not (got.view(torch.int32) == -2**31).any()
 
@@ -89,7 +91,7 @@ def test_payload_tree_parity(kdtype, order):
         to_torch(x), {"nested": [to_torch(values["u64"]),
                                  (to_torch(values["u128"]),)],
                       **{k: to_torch(values[k]) for k in ("f32", "f64", "u8")}},
-        order=order)
+        order=order, method="bitonic")
     assert_bits_equal(k, np.asarray(jk))
     assert_bits_equal(v["nested"][0], np.asarray(jv["u64"]))
     assert isinstance(v["nested"][1], tuple)
@@ -114,15 +116,18 @@ def test_port_against_numpy_oracles(kind, dtype, n, desc):
     want = oracles.oracle_perm(x, descending=desc)
     xt = to_torch(x)
     if kind == "keys":
-        assert_bits_equal(tthrs.sort_keys(xt, order=order), x[want])
+        assert_bits_equal(tthrs.sort_keys(xt, order=order, method="bitonic"),
+                          x[want])
     elif kind == "pairs":
         vals = rng.integers(0, 2**32, size=n, dtype=np.uint32)
-        k, v = tthrs.sort_pairs(xt, to_torch(vals), order=order)
+        k, v = tthrs.sort_pairs(xt, to_torch(vals), order=order,
+                                method="bitonic")
         assert_bits_equal(k, x[want])
         np.testing.assert_array_equal(v.numpy(), vals[want])
     else:
         np.testing.assert_array_equal(
-            tthrs.sort_indices(xt, order=order).numpy(), want)
+            tthrs.sort_indices(xt, order=order, method="bitonic").numpy(),
+            want)
 
 
 def test_refuses_what_later_slices_port():
@@ -171,16 +176,19 @@ def test_unstable_and_donate_keep_the_stable_result():
     rng = np.random.default_rng(RNG_SEED + 2)
     x = (rng.integers(0, 8, size=3000)).astype(np.uint32)
     vals = np.arange(3000, dtype=np.uint32)
-    xt = to_torch(x)
-    k, v = tthrs.sort_pairs(xt, to_torch(vals), stable=False, donate=True)
+    xt, vt = to_torch(x), to_torch(vals)
+    k, v = tthrs.sort_pairs(xt, vt, stable=False, donate=True, method="bitonic")
     want = np.argsort(x, kind="stable")
     np.testing.assert_array_equal(v.numpy(), vals[want])
-    assert_bits_equal(xt, x)  # donate has no effect yet
+    # donate writes the result into the caller's tensors and returns them
+    assert k is xt and v is vt
+    assert_bits_equal(xt, x[want])
 
 
 def test_radix_sort_and_config():
     x = rand_keys(np.random.default_rng(3), np.uint64, 2048)
-    rs = tthrs.RadixSort(tthrs.Config.for_keys(torch.uint64, "descending"))
+    rs = tthrs.RadixSort(tthrs.Config.for_keys(torch.uint64, "descending"),
+                         method="bitonic")
     assert_bits_equal(rs.sort_keys(to_torch(x)),
                       oracles.oracle_sort_keys(x, descending=True))
     k, v = rs.sort_pairs(to_torch(x), torch.arange(2048), start_bit=0,

@@ -82,8 +82,9 @@ SIZES = (0, 1, 2, 129, 1024, 2000, 4097)
 
 
 def check_parity(dtype, order, sizes=SIZES, seed=0):
-    """sort_keys, sort_pairs and sort_indices of the port against the JAX
-    package's stable permutation (``method="pallas"``), for each n."""
+    """sort_keys, sort_pairs and sort_indices of the port's bitonic engine
+    (its plain twin on these CPU tensors) against the JAX package's stable
+    permutation (``method="pallas"``), for each n."""
     rng = np.random.default_rng(seed)
     for n in sizes:
         x = rand_keys(rng, dtype, n)
@@ -92,11 +93,13 @@ def check_parity(dtype, order, sizes=SIZES, seed=0):
                                              method="pallas"))
         msg = f"{np.dtype(dtype).name} {order} n={n}"
         xt = to_torch(x)
-        assert_bits_equal(tthrs.sort_keys(xt, order=order), x[perm], msg)
-        k, v = tthrs.sort_pairs(xt, to_torch(vals), order=order)
+        assert_bits_equal(tthrs.sort_keys(xt, order=order, method="bitonic"),
+                          x[perm], msg)
+        k, v = tthrs.sort_pairs(xt, to_torch(vals), order=order,
+                                method="bitonic")
         assert_bits_equal(k, x[perm], msg)
         assert_bits_equal(v, vals[perm], msg)
-        idx = tthrs.sort_indices(xt, order=order)
+        idx = tthrs.sort_indices(xt, order=order, method="bitonic")
         assert idx.dtype == torch.int32, msg
         np.testing.assert_array_equal(idx.numpy(), perm, err_msg=msg)
         assert_bits_equal(xt, x, "inputs are never modified")

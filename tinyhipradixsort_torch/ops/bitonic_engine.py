@@ -63,10 +63,13 @@ Routes (all of them end in the same sweep kernel)
 
 The sweeps run in place, so every buffer a sweep sees is one the engine
 allocated: a caller's tensors (a 32-bit payload's words are views of it)
-are copied once before the first sweep.
+are copied once before the first sweep. With ``in_place=True`` (the API's
+``donate=``) the caller hands its words over: a route that needs no padding
+sweeps them where they lie.
 
-:data:`MARK`, when set, observes the route each call takes and the parts
-of a segmented sort (for measurement; ``chip_smoke.py`` times them).
+:data:`MARK`, when set, observes the route each call takes, the route of
+each merge of two sorted runs, and the parts of a segmented sort (for
+measurement; ``chip_smoke.py`` times them).
 """
 
 from __future__ import annotations
@@ -510,8 +513,9 @@ _ROW_SEG_MIN_PADDED = 1 << 26
 
 #: observer for measurement (``None``: off). Called as
 #: ``MARK(event, name, words)``: ``event="route"`` once per routing decision
-#: (``name`` one of "padded", "segmented", "rows", "rows-segmented"; the
-#: words it sorts), and ``"begin"``/``"end"`` around each part of a
+#: (``name`` one of "padded", "segmented", "rows", "rows-segmented", and for
+#: a merge of two sorted runs "merge-virtual" or "merge-padded"; the words
+#: it sorts or merges), and ``"begin"``/``"end"`` around each part of a
 #: segmented sort ("prefix network", "recursive remainder", "dense levels",
 #: "merge sweeps"; parts nest, the outermost is the part).
 MARK = None
@@ -544,11 +548,17 @@ def _tuning_or_env(tuning: EngineTuning | None) -> EngineTuning:
 
 def sort_words(cmp_words: list, carry_words: list, *,
                tuning: EngineTuning | None = None,
-               allow_tied_carries: bool = False):
+               allow_tied_carries: bool = False, in_place: bool = False):
     """Sort int32 word tuples by lexicographic unsigned order of cmp_words.
 
     Returns ``(cmp_words, carry_words)`` reordered; the inputs are not
     modified. Words must share one length and device.
+
+    ``in_place=True`` hands the words over: where the route needs no
+    padding (a power-of-two ``n >= 2**MIN_L``, or the segmented route) the
+    sweeps run on the given words themselves, and their content afterwards
+    is unspecified except where a returned word is one of them. A word that
+    is not contiguous is copied first. The words must not overlap.
 
     Contract: either the cmp tuples are all distinct (e.g. they end in an
     index word), or equal cmp tuples are bit-identical in every word (e.g.
@@ -580,16 +590,19 @@ def sort_words(cmp_words: list, carry_words: list, *,
         raise ValueError(f"allow_tied_carries needs pad-free n (power of two "
                          f">= {1 << MIN_L}), got {n}")
     ncmp = len(cmp_words)
-    words = _sort_flat(list(cmp_words) + list(carry_words), ncmp, tuning, 0,
-                       owned=False)
+    words = list(cmp_words) + list(carry_words)
+    if in_place:
+        words = [w.contiguous() for w in words]
+    words = _sort_flat(words, ncmp, tuning, 0, owned=in_place)
     return words[:ncmp], words[ncmp:]
 
 
 def _sort_flat(words: list, ncmp: int, tuning: EngineTuning, depth: int,
                owned: bool) -> list:
     """:func:`sort_words` on one list of words. ``owned``: the words are
-    buffers of this sort's own (contiguous views of a fresh copy), which
-    the segmented route may sweep in place; otherwise it copies them once."""
+    contiguous buffers this sort may sweep in place (views of its own copy,
+    or words the caller handed over); otherwise the segmented route copies
+    them once and the padded route sorts a padded copy."""
     n = words[0].shape[0]
     if n <= 1:
         return words
@@ -602,6 +615,8 @@ def _sort_flat(words: list, ncmp: int, tuning: EngineTuning, depth: int,
                      for w in words]
         return _sort_segmented(words, n, ncmp, tuning, depth)
     _mark_route("padded", words)
+    if owned and n == 1 << L:
+        return _run_network(words, ncmp, L, tuning)
     words = [common.pad_to_multiple(w, 1 << L, _fill(i, ncmp))
              for i, w in enumerate(words)]
     return [w[:n] for w in _run_network(words, ncmp, L, tuning)]
@@ -706,7 +721,9 @@ def _merge_sorted_runs(asc_words: list, desc_words: list, ncmp: int,
         return [torch.flip(w, (0,)) for w in desc_words]
     tuning = _tuning_or_env(tuning)
     if a & (a - 1) or b > a or a < (1 << MIN_L):
+        _mark_route("merge-padded", asc_words)
         return _merge_sorted_runs_padded(asc_words, desc_words, ncmp, tuning)
+    _mark_route("merge-virtual", asc_words)
     # virtual array [asc(a), SENT(a-b), desc(b)] of 2a. First split (stride
     # a): indices [0, a-b) face sentinels (no-ops); the rest compare-
     # exchange against the descending run.
@@ -831,7 +848,7 @@ def _pad_rows(w: torch.Tensor, B: int, nr: int, r: int, b_pad: int,
 
 def sort_words_rows(cmp_words: list, carry_words: list, shape, *,
                     tuning: EngineTuning | None = None,
-                    allow_tied_carries: bool = False,
+                    allow_tied_carries: bool = False, in_place: bool = False,
                     _seg_depth: int = 0):
     """Row-wise :func:`sort_words`: each of the ``B`` rows of the row-major
     flat words (``shape = (B, nr)``, word length ``B * nr``) sorts on its
@@ -847,7 +864,9 @@ def sort_words_rows(cmp_words: list, carry_words: list, shape, *,
     :func:`_sort_segmented_rows`.
     Same word contract as :func:`sort_words`, per row;
     ``allow_tied_carries`` needs power-of-two rows (batch sentinel rows are
-    safe, in-row sentinels are not).
+    safe, in-row sentinels are not). ``in_place`` has :func:`sort_words`
+    semantics: power-of-two rows whose batch needs no padding rows are
+    swept where they lie.
     """
     B, nr = shape
     if nr <= 1 or B == 0:
@@ -869,8 +888,11 @@ def sort_words_rows(cmp_words: list, carry_words: list, shape, *,
         return words[:ncmp], words[ncmp:]
     _mark_route("rows", words)
     T, b_pad = _row_plan(B, r, nwords, tuning)
-    words = [_pad_rows(w, B, nr, r, b_pad, _fill(i, ncmp))
-             for i, w in enumerate(words)]
+    if in_place and nr == 1 << r and b_pad == B:
+        words = [w.contiguous() for w in words]
+    else:
+        words = [_pad_rows(w, B, nr, r, b_pad, _fill(i, ncmp))
+                 for i, w in enumerate(words)]
     words = _run_network(words, ncmp, max(T, r), tuning,
                          stages=range(1, r + 1), forced_asc=r, tile_bits=T)
     words = [w.view(b_pad, 1 << r)[:B, :nr].reshape(-1) for w in words]

@@ -36,7 +36,8 @@ def sort_arrays(bits, arrays, start_bit, end_bit, *, tuning=None):
 
 
 def sort_semantics(keys, values, *, descending, start_bit, end_bit, want,
-                   zeros_exact=True, seg_bits=None, tuning=None, stable=True):
+                   zeros_exact=True, seg_bits=None, tuning=None, stable=True,
+                   in_place=False):
     """Full-semantics sort of ``keys``; returns a tuple of the outputs named
     in ``want`` (a subset of ``("keys", "values", "indices")``, in that
     order). ``values`` is a flat list of tensor leaves whose leading axes
@@ -55,6 +56,12 @@ def sort_semantics(keys, values, *, descending, start_bit, end_bit, want,
     no sentinel padding (a power-of-two row length; a flat ``n`` also
     ``>= 2**MIN_L``): tied keys then carry their payloads in some order.
     Elsewhere the sort stays stable.
+
+    ``in_place=True`` hands the keys and value leaves over to the sort (the
+    API's ``donate=``): words that are views of them (u32 key bits, 32-bit
+    payloads) are swept where they lie when the route needs no padding, so
+    the tensors' content afterwards is unspecified. ``seg_bits`` must not
+    share memory with anything the caller keeps.
     """
     batched = keys.ndim == 2
     rows = keys.shape[0] if batched else 1
@@ -132,11 +139,11 @@ def sort_semantics(keys, values, *, descending, start_bit, end_bit, want,
     if batched:
         cmp_out, carry_out = bitonic_engine.sort_words_rows(
             cmp_words, carry_words, (rows, n), tuning=tuning,
-            allow_tied_carries=allow_ties)
+            allow_tied_carries=allow_ties, in_place=in_place)
     else:
         cmp_out, carry_out = bitonic_engine.sort_words(
             cmp_words, carry_words, tuning=tuning,
-            allow_tied_carries=allow_ties)
+            allow_tied_carries=allow_ties, in_place=in_place)
     # decoded carry leaves, in the order they were packed
     carried = [reshape_out(a) for a in
                bitonic_engine.unpack_carries(carry_out, recipes)]

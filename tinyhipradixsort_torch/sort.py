@@ -20,7 +20,7 @@ sorts by the key-bit transform of :mod:`.keybits` while original key values
 select any bit window of the transformed bits; descending order is the
 bitwise complement of the transform, still stable.
 
-Engines (``method=``): ``"auto"`` and ``"bitonic"`` run the bitonic network
+Engines (``method=``): ``"bitonic"`` runs the bitonic network
 (``csrc/bitonic_sweep.cu``). It takes every key dtype (u32, i32, f32, u64,
 i64, f64 and the 16-bit u16, i16, f16, bf16), 1-D keys of any length (a
 non-power-of-two n sorts as power-of-two segments joined by truncated
@@ -30,7 +30,17 @@ merges), 2-D keys (each row sorted on its own by a row-truncated network),
 The portable engines ``"counting"`` (the reference's histogram, scan and
 scatter pass; its histogram is ``csrc/digit_histogram.cu``), ``"argsort"``
 and ``"lsd_argsort"`` (``torch.sort``) take the same inputs and are always
-stable.
+stable. ``"auto"`` follows the keys' device, as the JAX package follows
+the platform: the bitonic engine on CUDA tensors, ``"argsort"`` elsewhere.
+
+``donate=True`` is the reference's rule that the result replaces the input
+(tinyhipradixsort.hpp:936-943; the JAX package donates the buffers): the
+result is written into the caller's keys and value leaves, and those same
+tensors are returned. The keys (for ``sort_indices``, scratch) and leaves
+must be contiguous tensors on one device that share no memory; nothing is
+copied behind the caller's back to make them so. Where the bitonic route
+needs no padding it sweeps the caller's storage in place, so the sort's
+peak memory drops (u32 keys at a power-of-two n: no second buffer).
 """
 
 from __future__ import annotations
@@ -55,11 +65,15 @@ _INT_DTYPES = (torch.int8, torch.uint8, torch.int16, torch.uint16,
                torch.int32, torch.uint32, torch.int64, torch.uint64)
 
 
-def _resolve_method(method: str) -> str:
-    """``"auto"`` resolves to the bitonic engine."""
+def _resolve_method(method: str, device: torch.device) -> str:
+    """``"auto"`` resolves by the keys' device: the bitonic engine on CUDA,
+    ``"argsort"`` elsewhere (the JAX package picks its Pallas engine on the
+    TPU and argsort off it)."""
     if method not in _ENGINES:
         raise ValueError(f"unknown method {method!r}; expected one of {_ENGINES}")
-    return "bitonic" if method == "auto" else method
+    if method != "auto":
+        return method
+    return "bitonic" if device.type == "cuda" else "argsort"
 
 
 def _as_input(x, what: str) -> torch.Tensor:
@@ -96,19 +110,52 @@ def segment_ids_from_offsets(offsets, n: int) -> torch.Tensor:
     return ids.to(torch.int32)
 
 
-def _flatten(tree):
+def _flatten(tree, donate: bool = False):
     """Tensor leaves of a tensor or a (nested) dict/list/tuple of them, and
-    a function that rebuilds the structure from an iterator of new leaves."""
+    a function that rebuilds the structure from an iterator of new leaves.
+    A donated leaf must already be a tensor."""
     if isinstance(tree, dict):
-        parts = {k: _flatten(v) for k, v in tree.items()}
+        parts = {k: _flatten(v, donate) for k, v in tree.items()}
         leaves = [leaf for ls, _ in parts.values() for leaf in ls]
         return leaves, lambda it: {k: rb(it) for k, (_, rb) in parts.items()}
     if isinstance(tree, (list, tuple)):
-        parts = [_flatten(v) for v in tree]
+        parts = [_flatten(v, donate) for v in tree]
         leaves = [leaf for ls, _ in parts for leaf in ls]
         kind = list if isinstance(tree, list) else tuple
         return leaves, lambda it: kind(rb(it) for _, rb in parts)
+    if donate:
+        _check_donated(tree, "values")
     return [_as_input(tree, "values")], next
+
+
+def _check_donated(x, what: str) -> None:
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"donate=True needs {what} as torch tensors, got "
+                        f"{type(x).__name__}")
+    if not x.is_contiguous():
+        raise ValueError(f"donate=True needs contiguous {what}; a "
+                         "non-contiguous tensor would be copied")
+
+
+def _check_disjoint(tensors: list) -> None:
+    """Donated tensors must not share memory: the sort writes into each."""
+    seen = set()
+    for t in tensors:
+        if t.numel() == 0:
+            continue
+        ptr = (t.device, t.untyped_storage().data_ptr())
+        if ptr in seen:
+            raise ValueError("donate=True needs keys and value leaves that "
+                             "share no memory")
+        seen.add(ptr)
+
+
+def _write_back(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """Put a donated call's result ``src`` into the caller's ``dst``; a
+    result that the sort already wrote into ``dst`` in place stays."""
+    if src.data_ptr() != dst.data_ptr() or src.shape != dst.shape:
+        dst.copy_(src)
+    return dst
 
 
 def _sort_portable(keys, leaves, *, method, descending, start_bit, end_bit,
@@ -159,11 +206,14 @@ def _sort_portable(keys, leaves, *, method, descending, start_bit, end_bit,
 
 
 def _sort_entry(keys, values, *, method, descending, start_bit, end_bit,
-                want, zeros_exact=True, seg=None, tuning=None, stable=True):
-    """want: subset of ('keys', 'values', 'indices') controlling outputs."""
+                want, zeros_exact=True, seg=None, tuning=None, stable=True,
+                donate=False):
+    """want: subset of ('keys', 'values', 'indices') controlling outputs.
+    ``donate``: write the keys and values into the caller's tensors (see
+    the module docstring)."""
     leaves, rebuild = [], None
     if "values" in want:
-        leaves, rebuild = _flatten(values)
+        leaves, rebuild = _flatten(values, donate)
         for leaf in leaves:
             if leaf.shape[: keys.ndim] != keys.shape:
                 raise ValueError(
@@ -172,18 +222,26 @@ def _sort_entry(keys, values, *, method, descending, start_bit, end_bit,
             if leaf.device != keys.device:
                 raise ValueError(
                     f"value on {leaf.device}, keys on {keys.device}")
+    if donate:
+        _check_disjoint([keys] + leaves)
     if method == "bitonic":
+        seg_bits = None if seg is None else keybits.key_bits(seg)
+        if donate and seg is not None and seg_bits.data_ptr() == seg.data_ptr():
+            seg_bits = seg_bits.clone()  # the segment ids are not donated
         out = list(network_engine.sort_semantics(
             keys, leaves, descending=descending, start_bit=start_bit,
             end_bit=end_bit, want=want, zeros_exact=zeros_exact,
-            seg_bits=None if seg is None else keybits.key_bits(seg),
-            tuning=tuning, stable=stable))
+            seg_bits=seg_bits, tuning=tuning, stable=stable, in_place=donate))
     else:
         out = _sort_portable(keys, leaves, method=method,
                              descending=descending, start_bit=start_bit,
                              end_bit=end_bit, want=want, seg=seg)
+    if donate and "keys" in want:
+        out[0] = _write_back(keys, out[0])
     if "values" in want:
         pos = want.index("values")
+        if donate:
+            out[pos] = [_write_back(d, r) for d, r in zip(leaves, out[pos])]
         out[pos] = rebuild(iter(out[pos]))
     return tuple(out)
 
@@ -205,9 +263,12 @@ def _prep_segments(segment_ids, keys):
     return seg
 
 
-def _prep(keys, order, start_bit, end_bit, method, segment_ids):
-    method = _resolve_method(method)
+def _prep(keys, order, start_bit, end_bit, method, segment_ids,
+          donate=False):
+    if donate:
+        _check_donated(keys, "keys")
     keys = _as_input(keys, "keys")
+    method = _resolve_method(method, keys.device)
     if keys.ndim not in (1, 2):
         raise ValueError(
             "keys must be 1-D (single sort) or 2-D (batched row-wise sorts), "
@@ -216,7 +277,8 @@ def _prep(keys, order, start_bit, end_bit, method, segment_ids):
     start_bit, end_bit = common.resolve_window(keys.dtype, start_bit, end_bit)
     seg = _prep_segments(segment_ids, keys)
     return keys, dict(method=method, descending=descending,
-                      start_bit=start_bit, end_bit=end_bit, seg=seg)
+                      start_bit=start_bit, end_bit=end_bit, seg=seg,
+                      donate=donate)
 
 
 def sort_keys(keys, *, order="ascending", start_bit=0, end_bit=None,
@@ -225,7 +287,8 @@ def sort_keys(keys, *, order="ascending", start_bit=0, end_bit=None,
     """Stable radix-semantics sort of ``keys``; returns the sorted tensor.
 
     Reference parity: ``RadixSort::sortKeys`` (hpp:845-848). The input is
-    never modified. ``donate=True`` is accepted and has no effect yet.
+    not modified, unless ``donate=True``: then the sorted keys are written
+    into it and it is returned (see the module docstring).
 
     2-D ``keys`` are a batch: each row sorts on its own (on the bitonic
     engine a network truncated to one row's stages, ``B`` times one row's
@@ -238,7 +301,8 @@ def sort_keys(keys, *, order="ascending", start_bit=0, end_bit=None,
     comes back as ``+0.0``. Ignored for integer keys and by the portable
     engines, which are always exact.
     """
-    keys, kw = _prep(keys, order, start_bit, end_bit, method, segment_ids)
+    keys, kw = _prep(keys, order, start_bit, end_bit, method, segment_ids,
+                     donate)
     (out,) = _sort_entry(keys, None, want=("keys",), zeros_exact=zeros_exact,
                          tuning=EngineTuning.from_env(), **kw)
     return out
@@ -260,10 +324,12 @@ def sort_pairs(keys, values, *, order="ascending", start_bit=0, end_bit=None,
     so u32+u32 pairs move 2 words instead of 3 and u64+u64 4 instead of 5.
     Other sizes and the portable engines stay stable. Float keys keep the
     word (it holds the ``-0.0`` tag) unless ``zeros_exact=False`` too.
-    ``donate=True`` is accepted and has no effect yet. ``zeros_exact`` and
+    ``donate=True`` writes the result into the caller's keys and value
+    leaves and returns them, in ``values``' structure. ``zeros_exact`` and
     ``segment_ids`` have :func:`sort_keys` semantics.
     """
-    keys, kw = _prep(keys, order, start_bit, end_bit, method, segment_ids)
+    keys, kw = _prep(keys, order, start_bit, end_bit, method, segment_ids,
+                     donate)
     return _sort_entry(keys, values, want=("keys", "values"),
                        zeros_exact=zeros_exact, stable=stable,
                        tuning=EngineTuning.from_env(), **kw)
@@ -273,8 +339,10 @@ def sort_indices(keys, *, order="ascending", start_bit=0, end_bit=None,
                  method="auto", segment_ids=None, donate=False):
     """The stable sorting permutation: ``keys[perm]`` is sorted (2-D keys:
     the per-row permutation). int32 for n < 2**31, else int64.
-    ``donate=True`` is accepted and has no effect yet."""
-    keys, kw = _prep(keys, order, start_bit, end_bit, method, segment_ids)
+    ``donate=True`` lets the sort use the keys as scratch: their content
+    afterwards is unspecified."""
+    keys, kw = _prep(keys, order, start_bit, end_bit, method, segment_ids,
+                     donate)
     (perm,) = _sort_entry(keys, None, want=("indices",),
                           tuning=EngineTuning.from_env(), **kw)
     return perm
