@@ -64,17 +64,29 @@ Phases, one output line each (time, kernel launches, result):
    2**28 beside torch.sort and the bitonic sort_keys, with its per-stage
    breakdown;
 11. the distributed sort on a one-rank NCCL group (NCCL allows one rank per
-   card): psort_keys ascending and descending, psort_pairs with a u32
-   payload and psort_indices of 2**28 u32 keys drawn as
-   np.minimum(zipf(1.3), 2**31), each bit-exact against numpy (np.sort, a
-   stable argsort) and required to launch the sweep kernel, timed beside
-   sort_keys/sort_pairs/sort_indices of the same keys; then rank 0's local
-   work at the shapes of an 8-rank group with B = 2**28 per rank (the
-   capacities from psort's own arithmetic): the local sort of B tuples, the
-   binary-counter merges of 8 sentinel-padded runs of length cap, and the
-   rebalance merge of a kept run with 8 pieces of length cap3, each timed
-   and bit-equal to a stable torch.sort lexsort of the same words, each
-   merge's route read at the engine's MARK hook.
+   card): psort_keys ascending, descending and with the two-word index
+   (_force_wide), psort_pairs with a u32 payload, psort_indices with both
+   index widths and a donated psort_keys, of 2**28 u32 keys drawn as
+   np.minimum(zipf(1.3), 2**31), and the dry run (parallel.dryrun) at
+   world size 1; each output bit-exact against the host oracle
+   (utils.native_oracle, numpy where it does not build; the line says
+   which), the keys-only calls required to carry the key word alone in
+   the ring (psort.WIRE), the calls required to launch the sweep kernel,
+   each timed beside sort_keys/sort_pairs/sort_indices of the same keys,
+   the donated call's peak memory required no higher than the plain
+   call's; then rank 0's local work at the shapes of an 8-rank group with
+   B = 2**28 per rank (the capacities from psort's own arithmetic): the
+   local sort of B tuples, the binary-counter merges of 8 sentinel-padded
+   runs of length cap, and the rebalance merge of a kept run with 8 pieces
+   of length cap3, on (key, index) tuples and on the key word alone, each
+   timed and bit-equal to a stable torch.sort lexsort of the same words,
+   each merge's route read at the engine's MARK hook;
+12. the MSB-partition front-end (ops/partition_engine.py) at
+   partition_bits=8 against the direct network: sort_pairs u32+u32 and
+   sort_keys u32 of 2**28 uniform keys (route "partition") and sort_keys
+   of 2**28 zipf(1.3) keys (route "partition-fallback"), each bit-exact
+   against the host oracle, timed (median of 5, CUDA events) and broken
+   down by step at MARK.
 
 The line before the last is the kernel report, {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero
@@ -112,6 +124,7 @@ from tinyhipradixsort_torch.ops import counting_engine  # noqa: E402
 from tinyhipradixsort_torch.ops import cuda_lib  # noqa: E402
 from tinyhipradixsort_torch.ops import histogram as hist  # noqa: E402
 from tinyhipradixsort_torch.ops import network_engine  # noqa: E402
+from tinyhipradixsort_torch.parallel import dryrun  # noqa: E402
 from tinyhipradixsort_torch.parallel import multihost  # noqa: E402
 from tinyhipradixsort_torch.parallel import psort  # noqa: E402
 from tinyhipradixsort_torch.tools import H100_BYTES_PER_S  # noqa: E402
@@ -119,6 +132,7 @@ from tinyhipradixsort_torch.tools import card as card_line  # noqa: E402
 from tinyhipradixsort_torch.tools import cuda_ms  # noqa: E402
 from tinyhipradixsort_torch.tools import gather_floor as gf  # noqa: E402
 from tinyhipradixsort_torch.tools import partition_dma_floor as pdf  # noqa: E402
+from tinyhipradixsort_torch.utils import native_oracle  # noqa: E402
 
 SEED = 20260
 #: kernel (its source is csrc/<name>.cu) -> the TPU kernel it replaces
@@ -886,15 +900,11 @@ def phase_unstable_timing(card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_segmented_breakdown(x: torch.Tensor, seg_ms: float,
-                              card: str) -> None:
-    """Device time of the 160M segmented sort_keys by part: CUDA events at
-    the engine's ``MARK`` hook around each outermost part (prefix network,
-    recursive remainder, dense levels, merge sweeps); the rest (the first
-    copy, the flip, the key transform, the concatenations and the sentinel
-    blocks) is the sort's time less the parts'. Median of 3 passes after a
-    warm-up."""
-    tuning = be.EngineTuning()
+def part_times(fn, what: str) -> tuple[list, float]:
+    """Device time of each outermost part of ``fn()`` at the engine's
+    ``MARK`` hook (CUDA events at its "begin" and "end"; parts nest, the
+    outermost is the part) and of the whole call, median of 3 passes after
+    a warm-up: ``([(name, elements, ms), ...], total_ms)``."""
     passes, sizes = [], []
     for rep in range(4):
         spans, depth = [], [0]
@@ -917,22 +927,34 @@ def phase_segmented_breakdown(x: torch.Tensor, seg_ms: float,
         be.MARK = mark
         try:
             start.record()
-            _sort_keys_tuned(x, tuning)
+            fn()
             end.record()
         finally:
             be.MARK = None
         torch.cuda.synchronize()
         if depth[0] != 0 or not spans:
-            raise AssertionError("160M segmented sort: unbalanced or no parts")
+            raise AssertionError(f"{what}: unbalanced or no parts")
         if rep:
             passes.append([a.elapsed_time(b) for _, _, a, b in spans]
                           + [start.elapsed_time(end)])
         else:
             sizes = [(name, n) for name, n, _, _ in spans]
     med = [statistics.median(col) for col in zip(*passes)]
-    total = med[-1]
+    return [(name, n, ms) for (name, n), ms in zip(sizes, med)], med[-1]
+
+
+def phase_segmented_breakdown(x: torch.Tensor, seg_ms: float,
+                              card: str) -> None:
+    """Device time of the 160M segmented sort_keys by part
+    (:func:`part_times`: prefix network, recursive remainder, dense levels,
+    merge sweeps); the rest (the first copy, the flip, the key transform,
+    the concatenations and the sentinel blocks) is the sort's time less the
+    parts'."""
+    tuning = be.EngineTuning()
+    parts, total = part_times(lambda: _sort_keys_tuned(x, tuning),
+                              "160M segmented sort")
     by_part = {}
-    for (name, n), ms in zip(sizes, med):
+    for name, n, ms in parts:
         log("6 breakdown", f"160M segmented: {name} on {n} elements: "
             f"{ms:.3f} ms")
         by_part[name] = by_part.get(name, 0.0) + ms
@@ -1379,6 +1401,13 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.view(torch.int32).cpu().numpy().view(np.uint32)
 
 
+def _np(t: torch.Tensor) -> np.ndarray:
+    """A card tensor on the host (u32 through its int32 view)."""
+    if t.dtype == torch.uint32:
+        return _host(t)
+    return t.cpu().numpy()
+
+
 def _one_rank_group() -> None:
     """A one-rank NCCL group over the loopback address: NCCL allows one
     rank per card, and this run has one card."""
@@ -1401,12 +1430,33 @@ def _same(got: list, want: list) -> bool:
     return all(torch.equal(g[:w.shape[0]], w) for g, w in zip(got, want))
 
 
+def _peak(fn):
+    """``fn()``'s result and the most device memory it held above what was
+    allocated before it (bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def oracle_line(what: str, seconds: float) -> str:
+    how = ("the native host oracle (native/thrs_host.cpp, utils.native_oracle)"
+           if native_oracle.available() else
+           "numpy's stable argsort (the native oracle did not build)")
+    return f"{what}: {how}, waited {seconds:.3f} s"
+
+
 def phase_psort_main(card: str) -> int:
-    """psort_keys (both orders), psort_pairs and psort_indices of 2**28 zipf
-    keys at world size 1, through the public entry points: the kernel
-    launches of these four calls (the counts set to 0 just before), each
-    output bit-exact against numpy, and each call timed (median of 5, CUDA
-    events) beside the single-card sort of the same keys."""
+    """psort_keys (both orders, and with the two-word index), psort_pairs,
+    psort_indices (both index widths) and a donated psort_keys of 2**28
+    zipf keys at world size 1, and the dry run, through the public entry
+    points: the kernel launches of these calls (the counts set to 0 just
+    before), the words psort's ring carried (psort.WIRE: 1 on the keys-only
+    path), each output bit-exact against the host oracle, and each call
+    timed (median of 5, CUDA events) beside the single-card sort of the
+    same keys; the donated call's peak memory beside the plain call's."""
     rng_seed = SEED + 11
     t0 = time.perf_counter()
     x = zipf_keys(PSORT_N, rng_seed)
@@ -1416,82 +1466,113 @@ def phase_psort_main(card: str) -> int:
     log("11 psort", f"{PSORT_N} zipf(1.3) u32 keys ({distinct} distinct in "
         f"the first 2**20) and u32 payloads made in "
         f"{time.perf_counter() - t0:.3f} s")
-
-    def numpy_oracle():
-        # the stable argsort, from np.sort of the distinct composite keys
-        # key * 2**28 + index (keys <= 2**31: 59 bits); numpy's sorts
-        # release the GIL, so this runs beside the card's work
-        comp = np.sort((x.astype(np.uint64) << np.uint64(28))
-                       | np.arange(PSORT_N, dtype=np.uint64))
-        return ((comp & np.uint64((1 << 28) - 1)).astype(np.int64),
-                (comp >> np.uint64(28)).astype(np.uint32))
-
     pool = ThreadPoolExecutor(1)
-    oracle = pool.submit(numpy_oracle)
+    # the stable argsort on the host (ctypes releases the GIL), beside the
+    # card's work
+    oracle = pool.submit(native_oracle.oracle_sort, x)
     xd, vd = torch.from_numpy(x).cuda(), torch.from_numpy(v).cuda()
-    # each psort call, and the single-card sort of the same keys
+    # each psort call, the single-card sort of the same keys, and whether
+    # it is keys-only (its ring must carry the key word alone)
     calls = {
         "psort_keys": (lambda: thrs.psort_keys(xd),
-                       lambda: thrs.sort_keys(xd)),
+                       lambda: thrs.sort_keys(xd), True),
         "psort_keys descending": (
             lambda: thrs.psort_keys(xd, order="descending"),
-            lambda: thrs.sort_keys(xd, order="descending")),
+            lambda: thrs.sort_keys(xd, order="descending"), True),
+        "psort_keys _force_wide": (
+            lambda: thrs.psort_keys(xd, _force_wide=True),
+            lambda: thrs.sort_keys(xd), True),
         "psort_pairs": (lambda: thrs.psort_pairs(xd, vd),
-                        lambda: thrs.sort_pairs(xd, vd)),
+                        lambda: thrs.sort_pairs(xd, vd), False),
         "psort_indices": (lambda: thrs.psort_indices(xd),
-                          lambda: thrs.sort_indices(xd)),
+                          lambda: thrs.sort_indices(xd), False),
+        "psort_indices _force_wide": (
+            lambda: thrs.psort_indices(xd, _force_wide=True),
+            lambda: thrs.sort_indices(xd), False),
     }
-    got, routes = {}, []
+    got, routes, wires = {}, [], {}
     be.KERNEL_LAUNCHES = 0
     be.MARK = lambda event, name, words: (
         routes.append(name) if event == "route" else None)
     try:
-        for label, (run, _) in calls.items():
+        for label, (run, _, _) in calls.items():
+            wire = wires[label] = {}
+            psort.WIRE = lambda step, nw: wire.setdefault(step, nw)
             out = run()
-            got[label] = [_host(t) for t in
+            got[label] = [_np(t) for t in
                           (out if isinstance(out, tuple) else (out,))]
+        psort.WIRE = None
+        donated = xd.clone()
+        out = thrs.psort_keys(donated, donate=True)
+        got["psort_keys donate=True"] = [_np(out)]
+        if out is not donated:
+            raise AssertionError("donated psort_keys returned another tensor")
+        lines = dryrun.dryrun_multichip()
     finally:
         be.MARK = None
+        psort.WIRE = None
     launches = be.KERNEL_LAUNCHES
-    log("11 psort", f"main path (world size 1, 4 calls): sweep kernel "
-        f"launches={launches}, routes {routes}")
+    log("11 psort", f"main path (world size 1, {len(calls) + 1} calls and the "
+        f"dry run): sweep kernel launches={launches}, routes "
+        f"{ {r: routes.count(r) for r in dict.fromkeys(routes)} }")
     if launches == 0:
         raise AssertionError("psort did not launch the sweep kernel")
-    for label, (run, single) in calls.items():
+    for label, wire in wires.items():
+        log("11 psort", f"{label}: words per element in the ring chunk "
+            f"{wire.get('ring')} (psort.WIRE {wire})")
+        if calls[label][2] and wire.get("ring") != 1:
+            raise AssertionError(f"{label} did not take the keys-only path")
+    log("11 psort", f"dry run at world size 1: {len(lines)} scenarios ok")
+    for label, (run, single, _) in calls.items():
         ms, single_ms = cuda_ms(run, 5), cuda_ms(single, 5)
         log("11 psort", f"{label} u32 n=2**28 zipf(1.3), world size 1: "
-            f"{ms:.3f} ms, {label[1:].replace('psort', 'sort')} of the same "
-            f"keys {single_ms:.3f} ms (psort's own {ms - single_ms:.3f} ms); "
-            f"median of 5, CUDA events; card: {card}")
-    del xd, vd
+            f"{ms:.3f} ms, {label.split()[0].replace('psort', 'sort')} of the "
+            f"same keys {single_ms:.3f} ms (psort's own {ms - single_ms:.3f} "
+            f"ms); median of 5, CUDA events; card: {card}")
+    plain, plain_peak = _peak(lambda: thrs.psort_keys(xd))
+    del plain
+    don_ms = cuda_ms(lambda: thrs.psort_keys(donated, donate=True), 5)
+    _, don_peak = _peak(lambda: thrs.psort_keys(donated, donate=True))
+    log("11 psort", f"psort_keys donate=True u32 n=2**28: {don_ms:.3f} ms "
+        f"(median of 5, CUDA events); peak device memory above its inputs "
+        f"{don_peak / 2**20:.1f} MiB, without donate {plain_peak / 2**20:.1f} "
+        f"MiB (the keys take {PSORT_N * 4 / 2**20:.1f} MiB); card: {card}")
+    if don_peak > plain_peak:
+        raise AssertionError("donated psort_keys took more memory")
+    del xd, vd, donated
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    perm, srt = oracle.result()
+    srt, perm = oracle.result()
     pool.shutdown()
+    log("11 psort", oracle_line("oracle", time.perf_counter() - t0))
     checks = {
         "psort_keys": [srt],
         "psort_keys descending": [srt[::-1]],
+        "psort_keys _force_wide": [srt],
         "psort_pairs": [srt, v[perm]],
-        "psort_indices": [perm.astype(np.uint32)],
+        "psort_indices": [perm],
+        "psort_indices _force_wide": [perm],
+        "psort_keys donate=True": [srt],
     }
     for label, want in checks.items():
         ok = all(np.array_equal(g, w) for g, w in zip(got[label], want))
+        if label.startswith("psort_indices"):
+            dt = np.int64 if "wide" in label else np.int32
+            ok = ok and got[label][0].dtype == dt
         log("11 psort", f"{label}: {'bit-exact' if ok else 'MISMATCH'} vs "
-            "numpy (np.sort; stable argsort)")
+            "the oracle (sorted keys; stable argsort)")
         if not ok:
             raise AssertionError(f"psort output wrong: {label}")
-    log("11 psort", f"numpy checks waited {time.perf_counter() - t0:.3f} s")
     return launches
 
 
 def phase_psort_local(card: str) -> None:
     """Rank 0's local work in an 8-rank group with B = 2**28 per rank, at
-    psort's own capacities: the local sort of B (key, index) tuples, the
-    binary-counter merges of 8 sentinel-padded runs of length cap (built
-    round-robin from the sorted tuples, 2**25 real each, as the ring
-    delivers them), and the rebalance merge of the sorted B with 8 pieces
-    of length cap3. Each is timed (median of 5, CUDA events) and held
-    bit-equal to the stable torch.sort lexsort of the same words."""
+    psort's own capacities: the local sort of B (key, index) tuples, then
+    :func:`local_merges` on those 2-word tuples and on the key word alone
+    (the keys-only path ships no index). Each is timed (median of 5, CUDA
+    events) and held bit-equal to the stable torch.sort lexsort of the same
+    words."""
     plan = psort.capacity_plan(PSORT_RANKS * PSORT_N, PSORT_RANKS)
     B, cap, cap3 = plan.B, plan.cap, plan.cap3
     log("11 psort", f"P={PSORT_RANKS} shapes: B={B} cap={cap} cap3={cap3} "
@@ -1524,47 +1605,64 @@ def phase_psort_local(card: str) -> None:
     srt = measure("local sort of B", lambda: be.sort_words(words, [])[0],
                   _lexsorted(words))
     del keys, words
-    # 8 runs as the ring delivers them: each sorted, 2**25 real, then fill
+    # the ring's merges and the rebalance merge on the (key, index) tuples
+    # of a sort that ships the index, then on the key word alone, as the
+    # keys-only path ships it
+    for words in (srt, srt[:1]):
+        local_merges(words, B, cap, cap3, gen, measure, card)
+    del srt
+    torch.cuda.empty_cache()
+
+
+def local_merges(srt: list, B: int, cap: int, cap3: int, gen, measure,
+                 card: str) -> None:
+    """The 7 binary-counter merges of 8 sentinel-padded runs of length cap
+    (built round-robin from the sorted words, 2**25 real each, as the ring
+    delivers them) and the rebalance merge of the sorted words with 8
+    pieces of length cap3, on the words of ``srt`` (1 or 2)."""
+    nw = len(srt)
+    what = f"{nw}-word " + ("(key, index)" if nw == 2 else "keys-only")
     real = B // PSORT_RANKS
     runs = []
     for r in range(PSORT_RANKS):
-        run = torch.full((2, cap), psort.SENTINEL, dtype=torch.int32,
+        run = torch.full((nw, cap), psort.SENTINEL, dtype=torch.int32,
                          device="cuda")
-        run[0, :real] = srt[0][r::PSORT_RANKS]
-        run[1, :real] = srt[1][r::PSORT_RANKS]
+        for i in range(nw):
+            run[i, :real] = srt[i][r::PSORT_RANKS]
         runs.append(list(run))
 
     def fold():
-        tree = psort.RunTree(2, "bitonic")
+        tree = psort.RunTree(nw, "bitonic")
         for run in runs:
             tree.push(run)
         return tree.result()
 
-    measure("merges of 8 runs of cap", fold,
+    measure(f"merges of 8 runs of cap, {what}", fold,
             _lexsorted([torch.cat(ws) for ws in zip(*runs)]))
-    merge_breakdown(fold, card)
+    merge_breakdown(fold, f"{what}, ", card)
     del runs
     torch.cuda.empty_cache()
     # rebalance: the sorted B kept, 8 boundary pieces of cap3 (each a
-    # sorted run of 64 tuples with later indices, then fill)
-    pieces = torch.full((2, 8, cap3), psort.SENTINEL, dtype=torch.int32,
+    # sorted run of 64 tuples, with later indices, then fill)
+    pieces = torch.full((nw, 8, cap3), psort.SENTINEL, dtype=torch.int32,
                         device="cuda")
     pick = torch.randint(0, B, (8, 64), generator=gen, device="cuda")
     for i in range(8):
         piece = _lexsorted([srt[0][pick[i]],
                             B + torch.arange(i * 64, (i + 1) * 64,
                                              dtype=torch.int32,
-                                             device="cuda")])
-        pieces[0, i, :64], pieces[1, i, :64] = piece
-    recv = [pieces[0].reshape(-1), pieces[1].reshape(-1)]
-    measure("rebalance merge (B + 8 pieces of cap3)",
-            lambda: psort.rebalance_merge(srt, recv, 2, 8, cap3, "bitonic"),
+                                             device="cuda")][:nw])
+        for j in range(nw):
+            pieces[j, i, :64] = piece[j]
+    recv = [pieces[j].reshape(-1) for j in range(nw)]
+    measure(f"rebalance merge (B + 8 pieces of cap3), {what}",
+            lambda: psort.rebalance_merge(srt, recv, nw, 8, cap3, "bitonic"),
             _lexsorted([torch.cat([a, b]) for a, b in zip(srt, recv)]))
-    del srt, recv, pieces
+    del recv, pieces
     torch.cuda.empty_cache()
 
 
-def merge_breakdown(fold, card: str) -> None:
+def merge_breakdown(fold, what: str, card: str) -> None:
     """Device time of each merge of the 8-run fold: CUDA events at the
     engine's MARK hook where each merge takes its route (so each span also
     holds the flip of the next merge's second run), median of 3 passes
@@ -1597,9 +1695,124 @@ def merge_breakdown(fold, card: str) -> None:
         m = 1 << max((2 * a - 1).bit_length(), be.MIN_L)
         how = (f"a network on 2**{m.bit_length() - 1}, {2 * a / m:.3f} of "
                "it real" if name == "merge-padded" else "no padding")
-        log("11 psort", f"P={PSORT_RANKS} local work, merge of {a}+{a} "
+        log("11 psort", f"P={PSORT_RANKS} local work, {what}merge of {a}+{a} "
             f"({name}: {how}): {ms:.3f} ms; median of 3, CUDA events; "
             f"card: {card}")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the MSB-partition front-end against the direct network
+# ---------------------------------------------------------------------------
+
+#: the partition knob of phase 12 (the engine's default is 0: off)
+PARTITION_BITS = 8
+
+
+def _with_partition(fn):
+    """``fn`` with THRS_PARTITION_BITS set (the public API reads the
+    engine's knobs from the environment at each call)."""
+    def run():
+        old = os.environ.get("THRS_PARTITION_BITS")
+        os.environ["THRS_PARTITION_BITS"] = str(PARTITION_BITS)
+        try:
+            return fn()
+        finally:
+            if old is None:
+                del os.environ["THRS_PARTITION_BITS"]
+            else:
+                os.environ["THRS_PARTITION_BITS"] = old
+    return run
+
+
+def _routes_of(fn) -> tuple[list, object]:
+    routes = []
+    be.MARK = lambda event, name, words: (
+        routes.append(name) if event == "route" else None)
+    try:
+        out = fn()
+    finally:
+        be.MARK = None
+    return routes, out
+
+
+def partition_breakdown(fn, label: str, total_ms: float, card: str) -> None:
+    """Device time of each step of the front-end (:func:`part_times`: rank
+    sort, counts, scatter, bucket sorts, merges, or the fallback); the rest
+    (the key transform, the packing of words, the truncation) is the call's
+    time less the steps'."""
+    parts, total = part_times(fn, label)
+    rest = total - sum(ms for _, _, ms in parts)
+    steps = ", ".join(f"{name} {ms:.3f}" for name, _, ms in parts)
+    log("12 partition", f"{label} by step (ms): {steps}, the rest {rest:.3f};"
+        f" all {total:.3f} (the timed median {total_ms:.3f}); median of 3, "
+        f"CUDA events at MARK; card: {card}")
+
+
+def phase_partition(card: str) -> int:
+    """The MSB-partition front-end at partition_bits=8 through the public
+    entry points, against the direct network on the same keys: sort_pairs
+    u32+u32 and sort_keys u32 at 2**28 uniform keys (route "partition"),
+    and sort_keys of the 2**28 zipf(1.3) keys of phase 11 (route
+    "partition-fallback": the rank sort and counts are wasted). Each output
+    bit-exact against the host oracle, each call timed (median of 5, CUDA
+    events) beside the direct one and broken down by step. Returns the
+    sweep kernel's launches of the partition calls (counted from 0)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 12)
+    n = 1 << 28
+    keys, vals = _random_u32(n, gen), _random_u32(n, gen)
+    zipf = torch.from_numpy(zipf_keys(n, SEED + 11)).cuda()
+    pool = ThreadPoolExecutor(2)
+    oracles = {"uniform": pool.submit(native_oracle.oracle_sort, _host(keys)),
+               "zipf": pool.submit(native_oracle.oracle_sort, _host(zipf))}
+    cases = {
+        "sort_pairs u32+u32 uniform": (lambda: thrs.sort_pairs(keys, vals),
+                                       "uniform", "partition"),
+        "sort_keys u32 uniform": (lambda: thrs.sort_keys(keys), "uniform",
+                                  "partition"),
+        "sort_keys u32 zipf(1.3)": (lambda: thrs.sort_keys(zipf), "zipf",
+                                    "partition-fallback"),
+    }
+    got = {}
+    be.KERNEL_LAUNCHES = 0
+    for label, (fn, _, route) in cases.items():
+        routes, out = _routes_of(_with_partition(fn))
+        got[label] = [_host(t) for t in
+                      (out if isinstance(out, tuple) else (out,))]
+        log("12 partition", f"{label}: routes {routes}")
+        if route not in routes:
+            raise AssertionError(f"{label} did not take the {route} route")
+    launches = be.KERNEL_LAUNCHES
+    log("12 partition", f"main path (3 calls at partition_bits="
+        f"{PARTITION_BITS}): sweep kernel launches={launches}")
+    if launches == 0:
+        raise AssertionError("the partition front-end launched no sweep")
+    for label, (fn, _, route) in cases.items():
+        part_ms = cuda_ms(_with_partition(fn), 5)
+        direct_ms = cuda_ms(fn, 5)
+        log("12 partition", f"{label} n=2**28: partition_bits="
+            f"{PARTITION_BITS} ({route}) {part_ms:.3f} ms, direct network "
+            f"{direct_ms:.3f} ms ({direct_ms / part_ms:.3f}x); median of 5, "
+            f"CUDA events; card: {card}")
+        partition_breakdown(_with_partition(fn), label, part_ms, card)
+    del keys, zipf
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = {k: f.result() for k, f in oracles.items()}
+    pool.shutdown()
+    log("12 partition", oracle_line("oracles", time.perf_counter() - t0))
+    v = _host(vals)
+    for label, (_, which, _) in cases.items():
+        srt, perm = res[which]
+        want = [srt, v[perm]] if label.startswith("sort_pairs") else [srt]
+        ok = all(np.array_equal(g, w) for g, w in zip(got[label], want))
+        log("12 partition", f"{label}: {'bit-exact' if ok else 'MISMATCH'} "
+            "vs the oracle")
+        if not ok:
+            raise AssertionError(f"partition output wrong: {label}")
+    del vals
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_psort(card: str) -> int:
@@ -1677,6 +1890,11 @@ def main() -> int:
     psort_launches = phase_psort(card)
     log("11 psort", f"done in {time.perf_counter() - t0:.3f} s, sweep kernel "
         f"launches on the psort main path={psort_launches}")
+
+    t0 = time.perf_counter()
+    part_launches = phase_partition(card)
+    log("12 partition", f"done in {time.perf_counter() - t0:.3f} s, sweep "
+        f"kernel launches on the partition main path={part_launches}")
     log("done", f"{time.perf_counter() - t_all:.3f} s in all")
 
     def entry(name, launches, err, ms, plain_ms, nbytes, ops, library_ms):
@@ -1698,8 +1916,10 @@ def main() -> int:
     sweep = _plan(28, 1, be.EngineTuning())[0]
     print(card, flush=True)
     print(json.dumps({"kernels": [
-        # launches: the bitonic main path (phase 4) and psort's (phase 11)
-        entry("bitonic_sweep", launches + psort_launches, worst, kernel_ms,
+        # launches: the bitonic main path (phase 4), psort's (phase 11) and
+        # the partition front-end's (phase 12)
+        entry("bitonic_sweep", launches + psort_launches + part_launches,
+              worst, kernel_ms,
               plain_ms,
               2 * 4 * (1 << 28), 2 * len(sweep.substages) * (1 << 27), None),
         # digit extraction: a shift, a mask and an add per word

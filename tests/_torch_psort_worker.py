@@ -3,14 +3,17 @@
 Run as: python tests/_torch_psort_worker.py <case_dir> <world_size> <rank>
 
 ``<case_dir>/cases.json`` lists the cases: ``{"name", "fn" ("keys",
-"pairs" or "indices"), "kwargs", "keys" (a .npy file of the whole global
+"pairs", "indices", or "dryrun" for ``parallel.dryrun.dryrun_multichip``
+with ``kwargs``), "kwargs", "keys" (a .npy file of the whole global
 array), "values" (null, a .npy file, or a dict of them), "lengths" (each
 rank's piece), "group" (null, or the ranks of a subgroup to sort over)}``.
 The rank joins the group through ``multihost.initialize`` (gloo, a
 FileStore in ``<case_dir>``), runs every case on its piece and
 writes its outputs as ``<case_dir>/<name>.r<rank>.<part>.npy`` (the bits
 as signed integers of the same width) and ``<case_dir>/r<rank>.json``
-(per case: the overflow flag with ``check=True``, or the error raised).
+(per case: the overflow flag with ``check=True``, or the error raised; the
+words per element each exchange step carried, from ``psort.WIRE``; whether
+a donated call returned the caller's tensors; the dry run's lines).
 
 Imports only torch, numpy and the port, so it runs where another package
 named ``tests`` is installed.
@@ -27,7 +30,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import tinyhipradixsort_torch as thrs  # noqa: E402
-from tinyhipradixsort_torch.parallel import multihost  # noqa: E402
+from tinyhipradixsort_torch.parallel import dryrun, multihost, psort  # noqa: E402
 
 _SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
@@ -49,20 +52,32 @@ def run_case(case, case_dir, rank):
 
     keys = load(case["keys"])
     kw = dict(case["kwargs"])
+    report = {"overflow": None, "error": None, "wire": {}, "donated": None}
+    if case["fn"] == "dryrun":
+        report["lines"] = dryrun.dryrun_multichip(**kw)
+        return report
     if case["group"] is not None:
         # every rank creates the group; only its members sort
         kw["group"] = torch.distributed.new_group(case["group"])
         if rank not in case["group"]:
-            return {"overflow": None, "error": None}
-    if case["fn"] == "keys":
-        out = thrs.psort_keys(keys, **kw)
-    elif case["fn"] == "indices":
-        out = thrs.psort_indices(keys, **kw)
-    else:
-        values = case["values"]
-        vals = ({k: load(f) for k, f in values.items()}
-                if isinstance(values, dict) else load(values))
-        out = thrs.psort_pairs(keys, vals, **kw)
+            return report
+    psort.WIRE = lambda step, nw: report["wire"].setdefault(step, nw)
+    try:
+        if case["fn"] == "keys":
+            out = thrs.psort_keys(keys, **kw)
+        elif case["fn"] == "indices":
+            out = thrs.psort_indices(keys, **kw)
+        else:
+            values = case["values"]
+            vals = ({k: load(f) for k, f in values.items()}
+                    if isinstance(values, dict) else load(values))
+            out = thrs.psort_pairs(keys, vals, **kw)
+    finally:
+        psort.WIRE = None
+    if kw.get("donate") and case["fn"] != "indices":
+        first = out[0] if isinstance(out, tuple) else out
+        report["donated"] = first is keys and (
+            case["fn"] == "keys" or out[1] is vals)
     flag = None
     if kw.get("check"):
         *out, flag = out
@@ -75,7 +90,8 @@ def run_case(case, case_dir, rank):
     else:
         _save(case_dir, case["name"], rank, case["fn"],
               out[0] if isinstance(out, tuple) else out)
-    return {"overflow": flag, "error": None}
+    report["overflow"] = flag
+    return report
 
 
 def main():

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels on the card (the bitonic sweep, the digit
 histogram and the two probes): against their plain PyTorch versions,
 through the public entry points (the bitonic and the portable engines, a
-donated sort, the distributed sort on a one-rank NCCL group), and their
-input checks. Marked ``cuda``; each test skips where
+donated sort, the partition front-end, the distributed sort on a one-rank
+NCCL group with both index widths and donated, ``utils.time_fn``), and
+their input checks. Marked ``cuda``; each test skips where
 ``torch.cuda.is_available()`` is false.
 
 On a machine with an NVIDIA Hopper GPU:
@@ -411,3 +412,70 @@ def test_psort_pairs_on_a_one_rank_nccl_group(cuda, tmp_path):
     np.testing.assert_array_equal(_bits(k), x[p])
     np.testing.assert_array_equal(_bits(vv), v[p])
     np.testing.assert_array_equal(perm.cpu().numpy(), p)
+
+
+def test_partition_route_through_sort_pairs(cuda, monkeypatch):
+    # the MSB-partition front-end at 2**24 u32+u32 pairs (its default
+    # partition_min_n), bit-exact against the direct network and numpy
+    n = 1 << 24
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(24)
+    keys = torch.randint(-2**31, 2**31, (n,), generator=gen, device=cuda,
+                         dtype=torch.int64).to(torch.int32).view(torch.uint32)
+    vals = torch.arange(n, dtype=torch.int32, device=cuda)
+    direct = tthrs.sort_pairs(keys, vals)
+    routes = []
+    monkeypatch.setattr(tbe, "MARK", lambda event, name, words: routes.append(
+        name) if event == "route" else None)
+    monkeypatch.setenv("THRS_PARTITION_BITS", "8")
+    before = tbe.KERNEL_LAUNCHES
+    k, v = tthrs.sort_pairs(keys, vals)
+    assert "partition" in routes and tbe.KERNEL_LAUNCHES > before, routes
+    assert torch.equal(k, direct[0]) and torch.equal(v, direct[1])
+    x = _bits(keys)
+    p = np.argsort(x, kind="stable")
+    np.testing.assert_array_equal(_bits(k), x[p])
+    np.testing.assert_array_equal(v.cpu().numpy(), p)
+
+
+def test_psort_wide_and_donated_on_a_one_rank_nccl_group(cuda, tmp_path):
+    rng = np.random.default_rng(21)
+    n = 1 << 22
+    x = np.minimum(rng.zipf(1.3, size=n), 2**31).astype(np.uint32)
+    p = np.argsort(x, kind="stable")
+    multihost.initialize(backend="nccl",
+                         init_method=f"file://{tmp_path / 'store'}",
+                         world_size=1, rank=0)
+    try:
+        keys = torch.from_numpy(x).to(cuda)
+        wide = tthrs.psort_keys(keys, _force_wide=True)
+        perm = tthrs.psort_indices(keys, _force_wide=True)
+        peaks = {}
+        for donate in (False, True):
+            mine = keys.clone()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = tthrs.psort_keys(mine, donate=donate)
+            torch.cuda.synchronize()
+            peaks[donate] = torch.cuda.max_memory_allocated() - base
+            assert (out is mine) == donate
+            np.testing.assert_array_equal(_bits(out), x[p])
+            del mine, out
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(_bits(wide), x[p])
+    assert perm.dtype == torch.int64
+    np.testing.assert_array_equal(perm.cpu().numpy(), p)
+    assert peaks[True] <= peaks[False], peaks
+
+
+def test_time_fn_on_a_cuda_tensor(cuda):
+    from tinyhipradixsort_torch.utils import Stopwatch, time_fn
+
+    x = torch.arange(1 << 24, dtype=torch.int32, device=cuda)
+    t, floor = time_fn(lambda a: tthrs.sort_keys(a), x, reps=3)
+    assert t > 0 and floor > 0
+    sw = Stopwatch().start()
+    tthrs.sort_keys(x)
+    assert sw.stop() > 0

@@ -1,6 +1,6 @@
 """Importing the PyTorch port loads neither JAX nor Triton and builds
 nothing: each CUDA kernel is compiled only at its first use on a CUDA
-tensor."""
+tensor, and the native host oracle at its first call."""
 
 import os
 import subprocess
@@ -15,12 +15,15 @@ import tinyhipradixsort_torch
 import tinyhipradixsort_torch.sort, tinyhipradixsort_torch.config
 from tinyhipradixsort_torch.ops import bitonic_engine, cuda_lib, network_engine
 from tinyhipradixsort_torch.ops import argsort_engine, counting_engine, histogram
+from tinyhipradixsort_torch.ops import partition_engine
 from tinyhipradixsort_torch.tools import gather_floor, partition_dma_floor
-from tinyhipradixsort_torch.parallel import multihost, psort
+from tinyhipradixsort_torch.parallel import dryrun, multihost, psort
+from tinyhipradixsort_torch.utils import native_oracle, prng, profiling
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "triton"))
 assert not loaded, loaded
 assert not cuda_lib.BUILD_INFO
+assert not native_oracle._tried
 for mod in (bitonic_engine, histogram, gather_floor, partition_dma_floor):
     assert mod.KERNEL_LAUNCHES == 0, mod
 print("clean")

@@ -8,8 +8,11 @@ concatenated input (the unique globally stable order, whatever local
 engine either side runs: the port's cases name ``"bitonic"``, its plain
 twin here, or the default lexsort), and with
 ``check=True`` every rank's overflow flag must equal the JAX flag. The cases
-mirror ``tests/test_distributed.py``, plus uneven pieces and a world of
-one.
+mirror ``tests/test_distributed.py`` (the two-word index, the keys-only
+path that synthesizes the index, real keys equal to the pad fill), plus
+uneven pieces, ``donate=True``, a world of one and the dry run. The words
+per element that each exchange step carried are held to the keys-only
+wire of the JAX package.
 
 Each world size starts one world for all of its cases (a world takes
 seconds to start): the ranks run ``tests/_torch_psort_worker.py`` by path,
@@ -143,6 +146,32 @@ def _build_cases():
         kwargs={"check": True, "refine": False})
     add(8, "refine-off-pairs", "pairs", x, kwargs={"refine": False},
         values=np.arange(30000, dtype=np.uint32))
+    # the two-word (u64) global index at test size, heavy duplicates
+    x = rng.integers(0, 256, size=30000).astype(np.uint32)
+    add(8, "wide-pairs", "pairs", x, kwargs={"_force_wide": True},
+        values=np.arange(30000, dtype=np.uint32))
+    x = rng.integers(0, 50, size=8192, dtype=np.uint32)
+    add(8, "wide-indices", "indices", x, kwargs={"_force_wide": True})
+    add(8, "wide-keys-bitonic", "keys", x,
+        kwargs={"_force_wide": True, "method": "bitonic", "check": True})
+    # keys-only without the index on the wire: real keys equal to the pad
+    # fill (all-ones ascending, 0 descending), entry pads, both widths
+    x = rand(np.uint32, 100001)
+    x[rng.random(100001) < 0.05] = 0xFFFFFFFF
+    add(8, "sentinel-keys", "keys", x, kwargs={"check": True})
+    add(8, "sentinel-keys-wide", "keys", x, kwargs={"_force_wide": True})
+    x = x.copy()
+    x[rng.random(100001) < 0.05] = 0
+    add(8, "sentinel-keys-descending", "keys", x,
+        kwargs={"order": "descending"})
+    add(8, "constant-keys-no-overflow", "keys",
+        np.full(65536, 0xDEAD, dtype=np.uint32), kwargs={"check": True})
+    add(8, "keys-u64-descending", "keys", rand(np.uint64, 30000),
+        kwargs={"order": "descending"})
+    add(8, "keys-i32-descending-bitonic", "keys", rand(np.int32, 4096),
+        kwargs={"order": "descending", "method": "bitonic"})
+    add(8, "dryrun", "dryrun", np.zeros(8, dtype=np.uint32),
+        kwargs={"n": 1 << 16})
 
     # uneven pieces, empty ones included
     x = rand(np.uint32, 1042)
@@ -154,6 +183,10 @@ def _build_cases():
         kwargs={"order": "descending"})
     add(4, "uneven-bitonic", "keys", x, lengths=[300, 0, 0, 742],
         kwargs={"method": "bitonic"})
+    for fn in ("keys", "pairs", "indices"):
+        add(4, f"uneven-donate-{fn}", fn, x % 1000, lengths=uneven,
+            kwargs={"donate": True},
+            values=rand(np.uint64, 1042) if fn == "pairs" else None)
     # group=: a subgroup of three of the four ranks sorts on its own
     add(4, "subgroup-1-2-3", "keys", rand(np.uint32, 5000),
         lengths=[0, 1700, 1300, 2000], group=[1, 2, 3])
@@ -167,6 +200,13 @@ def _build_cases():
     add(1, "pairs-bitonic", "pairs", rand(np.uint32, 1001) % 50,
         kwargs={"method": "bitonic"}, values=rand(np.uint64, 1001))
     add(1, "indices", "indices", rand(np.int32, 1001), kwargs={"check": True})
+    # a piece of exactly B: the donated words are swept where they lie
+    x = rand(np.uint32, 1024)
+    add(1, "donate-keys-bitonic", "keys", x,
+        kwargs={"donate": True, "method": "bitonic"})
+    add(1, "donate-pairs-bitonic", "pairs", x % 7,
+        kwargs={"donate": True, "method": "bitonic"},
+        values=rand(np.uint64, 1024))
     return cases
 
 
@@ -241,6 +281,7 @@ def _jax_call(case):
     # case names: the output is the unique stable order either way
     kw = dict(case.kwargs)
     kw.pop("method", None)
+    kw.pop("donate", None)
     mesh = make_sort_mesh(jax.devices()[:len(case.members())])
     values = case.values
     args = (jnp.asarray(case.keys),)
@@ -254,6 +295,15 @@ def _jax_call(case):
 def test_psort_matches_jax(worlds, case):
     case_dir, reports = worlds(case.P)
     got = [rep[case.name] for rep in reports]
+    if case.fn == "dryrun":
+        # the dry run checks each scenario against numpy itself: rank 0
+        # prints its eight lines, the other ranks none
+        assert all(g["error"] is None for g in got), got
+        lines = [g["lines"] for g in got]
+        assert len(lines[0]) == 8 and not any(lines[1:]), lines
+        assert all(line.endswith(")") and " ok (" in line
+                   for line in lines[0]), lines[0]
+        return
     if "_unsafe_cap" in case.kwargs and not case.kwargs.get("check"):
         # every rank raises, after the flag's all_reduce: none hangs
         with pytest.raises(RuntimeError, match="overflow"):
@@ -263,6 +313,9 @@ def test_psort_matches_jax(worlds, case):
         return
     for g in got:
         assert g["error"] is None, g["error"]
+        # a donated call returns the caller's tensors (indices: a new one)
+        assert g["donated"] is (True if case.kwargs.get("donate")
+                                and case.fn != "indices" else None), g
     out = _jax_call(case)
     if case.kwargs.get("check"):
         *out, flag = out
@@ -283,3 +336,27 @@ def test_psort_matches_jax(worlds, case):
         part = "keys" if case.fn == "pairs" else case.fn
         piece = np.load(os.path.join(case_dir, f"{case.name}.r{r}.{part}.npy"))
         assert piece.shape[0] == ln
+
+
+#: words per element of each exchange step (relay only for uneven pieces):
+#: keys-only sorts carry the key words alone, whatever the index width
+WIRE = {
+    "keys-uint32-100001": dict.fromkeys(
+        ("relay-in", "pre-exchange", "ring", "rebalance", "relay-out"), 1),
+    "keys-uint64-100001": dict.fromkeys(
+        ("relay-in", "pre-exchange", "ring", "rebalance", "relay-out"), 2),
+    "sentinel-keys-wide": dict.fromkeys(
+        ("relay-in", "pre-exchange", "ring", "rebalance", "relay-out"), 1),
+    "indices": {"relay-in": 1, "pre-exchange": 2, "ring": 2, "rebalance": 2,
+                "relay-out": 1},
+    "wide-indices": {"pre-exchange": 3, "ring": 3, "rebalance": 3},
+    "wide-pairs": {"relay-in": 2, "pre-exchange": 4, "ring": 4,
+                   "rebalance": 4, "relay-out": 2},
+}
+
+
+@pytest.mark.parametrize("name", WIRE)
+def test_psort_wire_words_per_element(worlds, name):
+    _, reports = worlds(8)
+    for rep in reports:
+        assert rep[name]["wire"] == WIRE[name], (name, rep[name]["wire"])

@@ -153,3 +153,31 @@ def test_local_sort_methods_agree():
     assert tps._resolve_local_method("auto", torch.device("cuda")) == "bitonic"
     with pytest.raises(ValueError):
         tps._resolve_local_method("pallas", torch.device("cpu"))
+
+
+@pytest.mark.parametrize("n_idx", [1, 2])
+@pytest.mark.parametrize("B,P,n", [(64, 1, 60), (64, 8, 500), (192, 3, 576),
+                                   (1024, 4, 1)])
+def test_synth_index_words_match_jax(B, P, n, n_idx):
+    # the keys-only path's index words after the pre-exchange, every rank
+    for me in range(P):
+        want = jps._synth_index_words(B, P, jnp.int32(me), n, n_idx)
+        got = tps._synth_index_words(B, P, me, n, n_idx, "cpu")
+        assert len(got) == len(want) == n_idx
+        for g, w in zip(got, want):
+            assert_bits_equal(g, np.asarray(w))
+
+
+def test_index_words_of_wide_positions():
+    # positions at and past 2**32 as (hi, lo) words, the JAX split_u64 of
+    # the u64 position; past n all-ones; one word below 2**32
+    g = np.array([0, 5, 2**31, 2**32 - 1, 2**32, 2**32 + 7, 3 << 40],
+                 dtype=np.int64)
+    n = int(g[-2]) + 1
+    hi, lo = tps._index_words(torch.from_numpy(g.copy()), n, 2)
+    jhi, jlo = jbe.split_u64(jnp.asarray(g.astype(np.uint64)))
+    pad = g >= n
+    assert_bits_equal(hi, np.where(pad, 0xFFFFFFFF, np.asarray(jhi)))
+    assert_bits_equal(lo, np.where(pad, 0xFFFFFFFF, np.asarray(jlo)))
+    (w,) = tps._index_words(torch.from_numpy(g[:4].copy()), 2**32, 1)
+    assert_bits_equal(w, g[:4].astype(np.uint32))

@@ -8,11 +8,14 @@ or dicts/lists of them) and argsort outputs, on the bitonic engine or the
 portable engines (counting, argsort, LSD argsort), which also take batched
 2-D keys and ``segment_ids=``; and the distributed sample sort
 (``psort_keys``, ``psort_pairs``, ``psort_indices``) over
-``torch.distributed``. The package imports ``torch`` only; each CUDA
+``torch.distributed``, with its dry run (``parallel.dryrun``); ``utils``
+holds the timing helpers, the test PRNG and the native host oracle. The
+package imports ``torch`` and numpy only; each CUDA
 kernel is built from ``csrc/`` at its first use on a CUDA tensor, never at
 import. CPU tensors run the kernels' plain PyTorch versions.
 """
 
+from . import utils
 from .config import Config, KeyType, SortOrder, ValueType, temporary_buffer_bytes
 from .keybits import key_bits, key_bits_inverse, np_key_bits, np_key_bits_inverse
 from .parallel import psort_indices, psort_keys, psort_pairs

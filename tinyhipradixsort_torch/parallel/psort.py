@@ -23,8 +23,16 @@ elements.
    position-contiguous mass (constant keys, presorted runs) splits evenly.
 1. **Local sort** of the ``B`` tuples: the bitonic engine on CUDA, a stable
    ``torch.sort`` per word (the counterpart of ``jnp.lexsort``) elsewhere.
-   The compare tuple ends with the global index word, so tuples are
-   globally distinct and the sort is stable.
+   The compare tuple ends with the global index, so tuples are globally
+   distinct and the sort is stable. The index is one u32 word below a
+   global n of 2**32 and two, (hi, lo), from there on or with
+   ``_force_wide=True``. A keys-only sort whose keys come back from their
+   bits (``idx_synth``) ships no index: after the pre-exchange each rank
+   synthesizes its words' index from its rank and their positions
+   (:func:`_synth_index_words`), sorts with it, and drops it before step 4,
+   so the pre-exchange, the ring and the rebalance carry the key words
+   alone. From there on every count comes from lengths and cuts: a real
+   all-ones key is the pad fill's twin.
 2. **Splitters** from an ``all_gather`` of ``s`` regular samples per rank,
    then **exact-rank refinement** (:func:`_refine_cuts`): candidate tuples
    ``all_gather``-ed, ranked exactly by a vectorized search and an
@@ -42,10 +50,12 @@ elements.
 
 The cuts and counts come to the host (a few integers per round), so the
 slicing around the collectives is plain indexing; the words stay on the
-device. Not yet ported (each raises ``NotImplementedError``): ``donate=True``,
-the two-word global index (``_force_wide=True`` or a global ``n >= 2**32``)
-and the keys-only path that synthesizes the index word instead of shipping
-it (its output is the same; only the wire is larger).
+device. ``donate=True`` writes the result into the caller's keys and value
+leaves and returns them; where the caller's words enter the local sort as
+they are (every piece exactly ``B``, world size 1) the sort sweeps them in
+place. Buffers psort made itself (the relay's, the pre-exchange's) are
+always swept in place. :data:`WIRE` observes the words each exchange step
+carries per element.
 """
 
 from __future__ import annotations
@@ -60,12 +70,25 @@ from .. import keybits
 from ..config import SortOrder
 from ..ops import bitonic_engine as be
 from ..ops import common
-from ..sort import _as_input, _flatten
+from ..sort import _as_input, _check_disjoint, _check_donated, _flatten
+from ..sort import _write_back
 
 #: the all-ones u32 sentinel of a compare word (int32 holds the u32 bits)
 SENTINEL = -1
 _INT32_MIN = -(1 << 31)
 _LOCAL_METHODS = ("auto", "bitonic", "lexsort")
+
+#: observer for measurement and tests (``None``: off). Called as
+#: ``WIRE(step, nwords)`` where a step builds its exchange buffers, with the
+#: words per element they carry: "relay-in" and "relay-out" (only when a
+#: piece differs from B), "pre-exchange" and "rebalance" (only at P > 1),
+#: "ring" (its own chunk at P = 1 too).
+WIRE = None
+
+
+def _wire(step: str, nwords: int) -> None:
+    if WIRE is not None:
+        WIRE(step, nwords)
 
 
 # ---------------------------------------------------------------------------
@@ -178,9 +201,12 @@ def _resolve_local_method(method: str, device: torch.device) -> str:
 
 
 def _local_sort_words(cmp_words: list, carry_words: list, method: str,
-                      tuning=None) -> tuple[list, list]:
+                      tuning=None, in_place: bool = False) -> tuple[list, list]:
+    """The stable sort of the tuples; ``in_place``: the words are buffers
+    the bitonic engine may sweep where they lie."""
     if method == "bitonic":
-        return be.sort_words(list(cmp_words), list(carry_words), tuning=tuning)
+        return be.sort_words(list(cmp_words), list(carry_words), tuning=tuning,
+                             in_place=in_place)
     perm = _lexsort_perm(list(cmp_words))
     return [w[perm] for w in cmp_words], [w[perm] for w in carry_words]
 
@@ -393,16 +419,55 @@ def rebalance_merge(kept: list, recv: list, ncmp: int, nrows: int,
         tuning)
 
 
-def _psort_shard(cmp_words: list, carry_words: list, *, cap: int, cap3: int,
-                 method: str, sample_s: int, refine=None, tuning=None,
-                 group=None):
-    """The per-rank pipeline on (B,) int32 words in the padded layout (the
-    JAX package's ``_psort_shard`` without its synthesized index).
+def _index_words(g: torch.Tensor, n: int, n_idx: int) -> list:
+    """Global positions ``g`` (int32 or int64, this function's to reuse)
+    -> the index word(s): the u32 position (``n_idx == 1``, ``n <= 2**32``)
+    or the (hi, lo) words of the u64 one (``n_idx == 2``), all-ones where
+    ``g >= n`` (pads)."""
+    pad = g >= n
+    if n_idx == 1:
+        w = g if g.dtype == torch.int32 else be.as_word(g)
+        return [w.masked_fill_(pad, SENTINEL)]
+    g = g.to(torch.int64)
+    return [(g >> 32).to(torch.int32).masked_fill_(pad, SENTINEL),
+            be.as_word(g & 0xFFFFFFFF).masked_fill_(pad, SENTINEL)]
 
-    The last cmp word is the global index (all-ones on entry pads).
-    Returns (cmp_words, carry_words, overflow): exactly B sorted elements
-    per rank, rank p holding the global sorted ranks [p*B, (p+1)*B), and
-    the overflow flag reduced over the group (a host bool).
+
+def _position_dtype(P_: int, B: int) -> torch.dtype:
+    """int32 where every global position of the padded layout fits it."""
+    return torch.int32 if P_ * B <= 1 << 31 else torch.int64
+
+
+def _synth_index_words(B: int, P_: int, me: int, n: int, n_idx: int,
+                       device) -> list:
+    """The index word(s) of rank ``me``'s words after the pre-exchange,
+    from the rank and the positions alone (no wire): the pre-exchange is a
+    fixed permutation, local position ``p = i*sub + t`` (``sub = B/P``)
+    holding what rank ``i`` held at ``t*P + me``, the global position
+    ``i*B + t*P + me``. All-ones where that is ``>= n`` (entry pads), as
+    the index words built at the entry have it."""
+    dt = _position_dtype(P_, B)
+    i = torch.arange(P_, dtype=dt, device=device)[:, None]
+    t = torch.arange(B // P_, dtype=dt, device=device)
+    return _index_words((i * B + t * P_ + me).view(-1), n, n_idx)
+
+
+def _psort_shard(cmp_words: list, carry_words: list, *, cap: int, cap3: int,
+                 method: str, sample_s: int, n_idx: int = 1, synth_n=None,
+                 refine=None, tuning=None, group=None, owned: bool = False):
+    """The per-rank pipeline on (B,) int32 words in the padded layout (the
+    JAX package's ``_psort_shard``).
+
+    The last ``n_idx`` cmp words are the global index (all-ones on entry
+    pads), unless ``synth_n`` (the global count n) is given: then the cmp
+    words are the key words alone, and the index words are synthesized
+    after the pre-exchange (:func:`_synth_index_words`), used by the local
+    sort, the splitters, the cuts and the pad count, and dropped before the
+    ring exchange. ``owned``: the words are buffers the local sort may
+    sweep in place. Returns (cmp_words, carry_words, overflow): exactly B
+    sorted elements per rank, rank p holding the global sorted ranks
+    [p*B, (p+1)*B), and the overflow flag reduced over the group (a host
+    bool); with ``synth_n`` the cmp words are the key words.
     """
     P_ = dist.get_world_size(group)
     me = dist.get_rank(group)
@@ -410,37 +475,51 @@ def _psort_shard(cmp_words: list, carry_words: list, *, cap: int, cap3: int,
     dev = cmp_words[0].device
     ncmp = len(cmp_words)
     words = list(cmp_words) + list(carry_words)
+    del cmp_words, carry_words
     nw = len(words)
 
     # 0. stride pre-exchange with mod-P interleave: local position t*P + j
     # goes to rank j, so rank j holds exactly the global positions ≡ j
     # (mod P) and any position-contiguous mass splits evenly
     if P_ > 1:
+        _wire("pre-exchange", nw)
         sub = B // P_
         send = torch.stack(words).view(nw, sub, P_).permute(2, 0, 1)
         got = _all_to_all(send.reshape(P_ * nw, sub), [nw] * P_, [nw] * P_,
                           group)
-        mixed = got.view(P_, nw, sub).permute(1, 0, 2).reshape(nw, B)
-        words = list(mixed)
+        del send
+        words = list(got.view(P_, nw, sub).permute(1, 0, 2).reshape(nw, B))
+        del got
+        owned = True
 
-    # 1. local stable sort
-    cmp_words, carry_words = _local_sort_words(words[:ncmp], words[ncmp:],
-                                               method, tuning)
+    # 1. local stable sort (with the synthesized index on the keys-only
+    # path)
+    ncmp_s = ncmp
+    if synth_n is not None:
+        words[ncmp:ncmp] = _synth_index_words(B, P_, me, synth_n, n_idx, dev)
+        ncmp_s = ncmp + n_idx
+    cmp_words, carry_words = _local_sort_words(
+        words[:ncmp_s], words[ncmp_s:], method, tuning, in_place=owned)
+    del words
 
     # 2. s regular samples per rank, gathered; the replicated lexsort of
     # the P*s samples picks the P-1 splitters
     s = sample_s
     pos = torch.tensor([(i * B) // s for i in range(s)], device=dev)
     every = _all_gather(torch.stack([w[pos] for w in cmp_words]), group)
-    samples = [every[:, i].reshape(-1) for i in range(ncmp)]  # (P*s,) each
+    samples = [every[:, i].reshape(-1) for i in range(ncmp_s)]  # (P*s,) each
     order = _lexsort_perm(samples)
     sel = order[torch.tensor([q * (P_ * s) // P_ for q in range(1, P_)],
                              dtype=torch.int64, device=dev)]
     splitters = [w[sel] for w in samples]
 
-    # 3. cuts clipped to the real count: entry pads (all-ones tuples at the
-    # local tail) are never exchanged
-    nreal = B - int((cmp_words[-1] == SENTINEL).sum())
+    # 3. cuts clipped to the real count: entry pads (all-ones index words,
+    # the local tail) are never exchanged
+    pad = cmp_words[ncmp_s - n_idx] == SENTINEL
+    for w in cmp_words[ncmp_s - n_idx + 1:]:
+        pad &= w == SENTINEL
+    nreal = B - int(pad.sum())
+    del pad
     cut = _searchsorted_words(cmp_words, splitters).clamp(max=nreal)
     if refine is not None and refine[0] > 0:
         # targets are the padded quantiles q*B (rank q outputs global ranks
@@ -453,11 +532,18 @@ def _psort_shard(cmp_words: list, carry_words: list, *, cap: int, cap3: int,
     cuts = [0] + cut.tolist() + [nreal]
     seg = [b - a for a, b in zip(cuts, cuts[1:])]
     overflow = any(x > cap for x in seg)
+    # the synthesized index goes no further: the counts below come from
+    # lengths and cuts, and ties among equal key words are invisible in
+    # keys rebuilt from their bits
+    words = list(cmp_words[:ncmp]) + list(carry_words)
+    del cmp_words, carry_words, every, samples, splitters
 
     # 4+5. the ring exchange with its merges
+    _wire("ring", nw)
     merged, count = _ring_exchange_merge(
-        list(cmp_words) + list(carry_words), ncmp, cuts,
-        [min(x, cap) for x in seg], cap, me, method, tuning, group)
+        words, ncmp, cuts, [min(x, cap) for x in seg], cap, me, method,
+        tuning, group)
+    del words
 
     # 6. boundary rebalance to exactly B per rank: the piece for myself
     # stays; boundary pieces (the cumulative splitter drift) go to the R
@@ -472,6 +558,8 @@ def _psort_shard(cmp_words: list, carry_words: list, *, cap: int, cap3: int,
         for q in range(P_))
     send3 = [0 if q == me else min(seg3[q], cap3) for q in range(P_)]
     fills = _fills(nw, ncmp)
+    if R:
+        _wire("rebalance", nw)
     pieces = []
     for d in [sgn * r for r in range(1, R + 1) for sgn in (1, -1)]:
         q = me + d  # my piece for rank q rides offset d
@@ -482,6 +570,7 @@ def _psort_shard(cmp_words: list, carry_words: list, *, cap: int, cap3: int,
     recv3 = list(torch.cat(pieces, dim=1)) if pieces else []
     kept = list(_chunk(merged, fills, cuts3[me], cuts3[me + 1] - cuts3[me],
                        B))
+    del merged, pieces
     out = rebalance_merge(kept, recv3, ncmp, 2 * R, cap3, method, tuning)
     out = [w[:B] for w in out]
     flag = torch.tensor([int(overflow)], dtype=torch.int64, device=dev)
@@ -592,20 +681,6 @@ def _overlap(a0: int, a1: int, b0: int, b1: int) -> int:
     return max(0, min(a1, b1) - max(a0, b0))
 
 
-def _index_word(start: int, n: int, size: int, device) -> torch.Tensor:
-    """The global positions ``start .. start + size - 1`` as u32 words, the
-    ones at or past ``n`` all-ones (pads)."""
-    out = torch.full((size,), SENTINEL, dtype=torch.int32, device=device)
-    real = min(max(n - start, 0), size)
-    if start + real <= 1 << 31:
-        out[:real] = torch.arange(start, start + real, dtype=torch.int32,
-                                  device=device)
-    else:
-        out[:real] = be.as_word(torch.arange(start, start + real,
-                                             dtype=torch.int64, device=device))
-    return out
-
-
 def _relay_in(words: list, lengths: list, B: int, n: int, ncmp: int,
               me: int, group) -> list:
     """The caller's pieces -> the padded layout: rank q holds global
@@ -613,6 +688,7 @@ def _relay_in(words: list, lengths: list, B: int, n: int, ncmp: int,
     ``all_to_all_single`` of the stacked words."""
     if all(x == B for x in lengths):
         return list(words)
+    _wire("relay-in", len(words))
     off, ln = _spans(lengths)[me]
     send = [_overlap(off, off + ln, q * B, min((q + 1) * B, n))
             for q in range(len(lengths))]
@@ -629,6 +705,7 @@ def _relay_out(words: list, lengths: list, B: int, n: int, me: int,
     sorted ranks [off_r, off_r + len_r)."""
     if all(x == B for x in lengths):
         return list(words)
+    _wire("relay-out", len(words))
     mine = (me * B, min((me + 1) * B, n))
     send = [_overlap(o, o + x, *mine) for o, x in _spans(lengths)]
     off, ln = _spans(lengths)[me]
@@ -644,14 +721,6 @@ def _psort_entry(keys, leaves, *, group, descending, method, oversample,
                  slack, want, check, zeros_exact=True, start_bit=0,
                  end_bit=None, refine=True, tuning=None, _unsafe_cap=None,
                  _force_wide=False, donate=False):
-    if donate:
-        raise NotImplementedError(
-            "psort donate=True is not ported yet (JAX parallel/psort.py "
-            "_psort_entry_donated)")
-    if _force_wide:
-        raise NotImplementedError(
-            "psort's two-word global index (_force_wide, split_index64) is "
-            "not ported yet")
     if keys.ndim != 1:
         raise ValueError(f"keys must be 1-D, got shape {tuple(keys.shape)}")
     dev = keys.device
@@ -664,13 +733,14 @@ def _psort_entry(keys, leaves, *, group, descending, method, oversample,
                              f"keys shape {tuple(keys.shape)}")
         if leaf.device != dev:
             raise ValueError(f"value on {leaf.device}, keys on {dev}")
+    if donate:
+        _check_disjoint([keys] + list(leaves))
 
     lengths = [x[0] for x in _all_gather_ints([keys.shape[0]], dev, group)]
     n = sum(lengths)
-    if n >= 1 << 32:
-        raise NotImplementedError(
-            "psort of n >= 2**32 needs the two-word global index "
-            "(split_index64), which is not ported yet")
+    # a global n >= 2**32 needs the u64 index, (hi, lo); below it one word
+    # rides every sort and exchange (_force_wide takes the wide path at any n)
+    n_idx = 2 if _force_wide or n >= 1 << 32 else 1
     plan = capacity_plan(n, P_, oversample=oversample, slack=slack,
                          refine=refine, _unsafe_cap=_unsafe_cap)
     B = plan.B
@@ -682,50 +752,72 @@ def _psort_entry(keys, leaves, *, group, descending, method, oversample,
     kind = keybits.dtype_kind(keys.dtype)
     keys_from_bits = full_window and (kind in "iu"
                                       or (kind == "f" and not zeros_exact))
+    # keys-only, rebuilt from the bits: the index is needed only locally
+    # (stable local sort, tie-broken cuts, pad count), so each rank
+    # synthesizes it after the pre-exchange and it never travels
+    synth = keys_from_bits and want == ("keys",)
     carry_in = ([keys] if "keys" in want and not keys_from_bits else [])
     carry_in += list(leaves) if "values" in want else []
     carry_words, recipes = be.pack_carries(carry_in)
     nkey = len(key_cmp)
+    relayed = any(x != B for x in lengths)
 
     words = _relay_in(key_cmp + carry_words, lengths, B, n, nkey, me, group)
-    # the global index word: stability tie-break, splitter balance and the
-    # indices output in one; all-ones on the pads
-    cmp_words = words[:nkey] + [_index_word(me * B, n, B, dev)]
-    carry_words = words[nkey:]
-    ncmp = len(cmp_words)
-
+    del bits, key_cmp, carry_words
+    # the global index (unless synthesized): stability tie-break, splitter
+    # balance and the indices output in one; all-ones on the pads. It is
+    # made in the call, so that the shard holds its only reference and
+    # frees it after the local sort. The caller's words may be swept in
+    # place only when donated; the relay's are psort's own.
     cmp_out, carry_out, overflow = _psort_shard(
-        cmp_words, carry_words, cap=plan.cap, cap3=plan.cap3, method=method,
-        sample_s=plan.s, refine=plan.refine, tuning=tuning, group=group)
-    out = _relay_out(cmp_out + carry_out, lengths, B, n, me, group)
-    cmp_out, carry_out = out[:ncmp], out[ncmp:]
+        words[:nkey] + ([] if synth else _index_words(
+            torch.arange(me * B, (me + 1) * B, dtype=_position_dtype(P_, B),
+                         device=dev), n, n_idx)),
+        words[nkey:], cap=plan.cap, cap3=plan.cap3, method=method,
+        sample_s=plan.s, n_idx=n_idx, synth_n=n if synth else None,
+        refine=plan.refine, tuning=tuning, group=group,
+        owned=donate or relayed)
+    del words
+    # only the words the result needs travel back
+    need = cmp_out[:nkey] if "keys" in want and keys_from_bits else []
+    need += cmp_out[len(cmp_out) - n_idx:] if "indices" in want else []
+    out = _relay_out(need + carry_out, lengths, B, n, me, group)
+    del cmp_out, carry_out, need
 
     result = []
-    carried = be.unpack_carries(carry_out, recipes)
-    if "keys" in want:
-        if keys_from_bits:
-            sbits = (cmp_out[0] if bits.dtype == torch.int32
-                     else be.join_u64(cmp_out[0], cmp_out[1]))
-            result.append(keybits.key_bits_inverse(sbits, keys.dtype,
-                                                   descending=descending))
-        else:
-            result.append(carried.pop(0))
-    if "values" in want:
-        result.append(carried)
+    if "keys" in want and keys_from_bits:
+        kw, out = out[:nkey], out[nkey:]
+        sbits = kw[0] if nkey == 1 else be.join_u64(kw[0], kw[1])
+        keys_out = keybits.key_bits_inverse(sbits, keys.dtype,
+                                            descending=descending)
     if "indices" in want:
-        # below 2**31 the index word holds the index itself
-        result.append(cmp_out[-1] if n < 2**31
-                      else be.unsigned(cmp_out[-1]))
+        iw, out = out[:n_idx], out[n_idx:]
+    carried = be.unpack_carries(out, recipes)
+    if "keys" in want:
+        k = keys_out if keys_from_bits else carried.pop(0)
+        result.append(_write_back(keys, k) if donate else k)
+    if "values" in want:
+        result.append([_write_back(d, r) for d, r in zip(leaves, carried)]
+                      if donate else carried)
+    if "indices" in want:
+        if n_idx == 2:
+            result.append(be.join_u64(iw[0], iw[1]))
+        else:
+            # below 2**31 the index word holds the index itself
+            result.append(iw[0] if n < 2**31 else be.unsigned(iw[0]))
     result.append(overflow)
     return result
 
 
-def _prep(keys, order, start_bit, end_bit):
+def _prep(keys, order, start_bit, end_bit, donate):
+    if donate:
+        _check_donated(keys, "keys")
     keys = _as_input(keys, "keys")
     descending = SortOrder.parse(order).descending
     start_bit, end_bit = common.resolve_window(keys.dtype, start_bit, end_bit)
     return keys, dict(descending=descending, start_bit=start_bit,
-                      end_bit=end_bit, tuning=be.EngineTuning.from_env())
+                      end_bit=end_bit, tuning=be.EngineTuning.from_env(),
+                      donate=donate)
 
 
 def psort_keys(keys, *, group=None, order="ascending", method="auto",
@@ -743,14 +835,18 @@ def psort_keys(keys, *, group=None, order="ascending", method="auto",
     (True: a splitter segment exceeded the static capacity and elements were
     dropped; raise ``slack``/``oversample``); otherwise an overflow raises
     ``RuntimeError`` on every rank. ``start_bit``/``end_bit`` and
-    ``zeros_exact`` have :func:`..sort.sort_keys` semantics.
+    ``zeros_exact`` have :func:`..sort.sort_keys` semantics
+    (``zeros_exact=False`` lets float keys come back from their bits, so
+    the index stays off the wire, as for integer keys). ``donate=True``
+    writes the result into ``keys`` (contiguous) and returns it.
+    ``_force_wide=True`` takes the two-word index of a global n >= 2**32
+    at any n.
     """
-    keys, kw = _prep(keys, order, start_bit, end_bit)
+    keys, kw = _prep(keys, order, start_bit, end_bit, donate)
     out = _psort_entry(keys, [], group=group, method=method,
                        oversample=oversample, slack=slack, want=("keys",),
                        check=check, zeros_exact=zeros_exact, refine=refine,
-                       _unsafe_cap=_unsafe_cap, _force_wide=_force_wide,
-                       donate=donate, **kw)
+                       _unsafe_cap=_unsafe_cap, _force_wide=_force_wide, **kw)
     out = _consume_overflow(out, check)
     return out if check else out[0]
 
@@ -761,15 +857,17 @@ def psort_pairs(keys, values, *, group=None, order="ascending",
                 refine=True, _force_wide=False):
     """Distributed stable key-value sort: ``(keys, values)`` of this rank's
     share; ``values`` is a tensor or a (nested) dict, list or tuple of
-    tensors whose leading axis matches this rank's keys. Other arguments as
-    in :func:`psort_keys`."""
-    keys, kw = _prep(keys, order, start_bit, end_bit)
-    leaves, rebuild = _flatten(values)
+    tensors whose leading axis matches this rank's keys. ``donate=True``
+    writes the result into ``keys`` and the value leaves (contiguous
+    tensors that share no memory) and returns them in ``values``'
+    structure. Other arguments as in :func:`psort_keys`."""
+    keys, kw = _prep(keys, order, start_bit, end_bit, donate)
+    leaves, rebuild = _flatten(values, donate)
     out = _psort_entry(keys, leaves, group=group, method=method,
                        oversample=oversample, slack=slack,
                        want=("keys", "values"), check=check,
                        zeros_exact=zeros_exact, refine=refine,
-                       _force_wide=_force_wide, donate=donate, **kw)
+                       _force_wide=_force_wide, **kw)
     out = _consume_overflow(out, check)
     k, v = out[0], rebuild(iter(out[1]))
     return (k, v, out[2]) if check else (k, v)
@@ -779,12 +877,14 @@ def psort_indices(keys, *, group=None, order="ascending", method="auto",
                   start_bit=0, end_bit=None, oversample=None, slack=None,
                   check=False, donate=False, refine=True, _force_wide=False):
     """This rank's share of the global stable sorting permutation (global
-    indices into the concatenated keys; int32 for a global n < 2**31).
+    indices into the concatenated keys; int32 for a global n < 2**31, int64
+    from there on and with ``_force_wide=True``). ``donate=True`` lets the
+    sort use the keys as scratch: their content afterwards is unspecified.
     Other arguments as in :func:`psort_keys`."""
-    keys, kw = _prep(keys, order, start_bit, end_bit)
+    keys, kw = _prep(keys, order, start_bit, end_bit, donate)
     out = _psort_entry(keys, [], group=group, method=method,
                        oversample=oversample, slack=slack,
                        want=("indices",), check=check, refine=refine,
-                       _force_wide=_force_wide, donate=donate, **kw)
+                       _force_wide=_force_wide, **kw)
     out = _consume_overflow(out, check)
     return out if check else out[0]
