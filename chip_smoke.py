@@ -17,10 +17,11 @@ Phases, one output line each (time, kernel launches, result):
    and 5-word instantiations are required to spill nothing;
 3. kernel vs plain: sweeps of 1, 2, 3, 4, 5, 8 and 12 words (local, cross,
    forced ascending) on 2**20 random words, the cross sweeps over the top
-   index bits of the 2**28 one-word and 2**24 three-word networks, the row
-   paths' sweeps (stage r forced ascending, on b_pad * 2**r words, tiles
-   spanning several rows or lying inside one) and the merges' sweeps of
-   stage log2 m alone, through the CUDA kernel and through
+   index bits of the 2**28 and 2**31 one-word and 2**24 three-word
+   networks, the row paths' sweeps (stage r forced ascending, on
+   b_pad * 2**r words, tiles spanning several rows or lying inside one) and
+   the merges' sweeps of stage log2 m alone (2**31 words for the u32Large
+   bench's merge), through the CUDA kernel and through
    ``run_sweep_reference``, required bit-equal;
 4. main path: the public entry points at real sizes (sort_keys u32 at 2**28,
    the bench workload; pairs at 2**24 and 2**16; f32 with NaN and -0.0;
@@ -86,7 +87,19 @@ Phases, one output line each (time, kernel launches, result):
    sort_keys u32 of 2**28 uniform keys (route "partition") and sort_keys
    of 2**28 zipf(1.3) keys (route "partition-fallback"), each bit-exact
    against the host oracle, timed (median of 5, CUDA events) and broken
-   down by step at MARK.
+   down by step at MARK;
+13. the harness layer in process, on phase 11's group: the bench
+   (``tinyhipradixsort_torch.bench``) at 2**28 and at the reference's
+   u32Large n = 2**31 + 100 (unittest.cpp:688-717), each with --verify full
+   (bit-exact against the host oracle) and its JSON line, its routes at
+   MARK (padded at 2**28, segmented at u32Large), peak device memory, the
+   oracle's time and the process's peak host memory, the host's memory
+   printed before the u32Large step; the matrix (``benchmarks.full``) at 1M, 16M and 256M
+   beside torch.sort; ``tools.verify_baseline`` (2**28 u64+u64 pairs);
+   ``tools.nonpow2_sweep --big`` (each case exact and on its route);
+   ``tools.drive --iters 8``; the three examples (soak with --iters 2);
+   ``entry``; ``benchmarks.scaling`` at world size 1; and
+   ``tools.baseline_scale``. Each step raises on a failure.
 
 The line before the last is the kernel report, {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero
@@ -100,6 +113,7 @@ import dataclasses
 import json
 import os
 import re
+import resource
 import socket
 import statistics
 import sys
@@ -173,8 +187,9 @@ def sweep_cases(tuning: be.EngineTuning):
     shared-memory body): the first local sweep, a later local
     sweep, the widest and the narrowest cross sweep, and forced-ascending
     variants. Then the cross sweeps of the main path's own plans that reach
-    the top index bits (1 word at L=28, the bench workload; 3 words at L=24,
-    the pairs case): the last stage's top sweep, and the widest and
+    the top index bits (1 word at L=28, the bench workload; 1 word at L=31,
+    the 2**31 prefix of the bench's u32Large n = 2**31 + 100; 3 words at
+    L=24, the pairs case): the last stage's top sweep, and the widest and
     narrowest sweeps of the stage below it, whose direction bit is the top
     index bit.
     """
@@ -197,7 +212,7 @@ def sweep_cases(tuning: be.EngineTuning):
             picks[name + "-forced"] = dataclasses.replace(s, forced_asc=k)
         for name, s in picks.items():
             cases.append((f"{nwords}w/L{L}/{name}", L, ncmp, nwords, s))
-    for L, nwords in ((28, 1), (24, 3)):
+    for L, nwords in ((28, 1), (31, 1), (24, 3)):
         cross = [s for s in _plan(L, nwords, tuning) if s.g > 0]
         last = [s for s in cross if s.substages[0][0] == L]
         below = [s for s in cross if s.substages[0][0] == L - 1]
@@ -242,8 +257,9 @@ def row_sweep_cases(tuning: be.EngineTuning):
     tuples and 2**10 three-word tuples (tiles spanning 8 rows each) and 3
     rows of 2**16 (tiles inside a row, so cross sweeps); and the same rows'
     merges, stage r alone. Flat merges: stage log2 m alone of the 2**27
-    one-word prefix and of a 2**24 three-word one (``_merge_pow2``), its
-    widest cross sweep and its local sweep."""
+    one-word prefix, of the 2**31 one (the u32Large bench's virtual-sentinel
+    merge, ``_merge_sorted_runs``) and of a 2**24 three-word one
+    (``_merge_pow2``), its widest cross sweep and its local sweep."""
     cases = []
     for B, r, nwords, ncmp in ((5000, 7, 1, 1), (3000, 10, 3, 2),
                                (3, 16, 1, 1)):
@@ -260,7 +276,7 @@ def row_sweep_cases(tuning: be.EngineTuning):
                 cases.append((f"rows {B}x2**{r} {nwords}w (tile 2**{T}, "
                               f"b_pad {b_pad})/{kind}/{name}", b_pad << r,
                               ncmp, nwords, s))
-    for m_bits, nwords, ncmp in ((27, 1, 1), (24, 3, 2)):
+    for m_bits, nwords, ncmp in ((27, 1, 1), (31, 1, 1), (24, 3, 2)):
         T = be._tile_bits_for(nwords, m_bits, tuning)
         plan = be.plan_sweeps(m_bits, T, T, [m_bits],
                               g_max_cross=tuning.cross_g_max)
@@ -269,6 +285,16 @@ def row_sweep_cases(tuning: be.EngineTuning):
             cases.append((f"merge 2**{m_bits} {nwords}w/{name}", 1 << m_bits,
                           ncmp, nwords, s))
     return cases
+
+
+def max_abs_err(got: list, want: list) -> int:
+    """The largest difference of two word lists as unsigned values, in
+    chunks of 2**26 (the int64 widening of a 2**31-word buffer would take
+    16 GiB)."""
+    step = 1 << 26
+    return max(int((be.unsigned(a[i:i + step]) - be.unsigned(b[i:i + step]))
+                   .abs().max())
+               for a, b in zip(got, want) for i in range(0, a.shape[0], step))
 
 
 def phase_sweeps() -> int:
@@ -284,10 +310,11 @@ def phase_sweeps() -> int:
         got = be.run_sweep([w.clone() for w in words], sweep, ncmp)
         torch.cuda.synchronize()
         kernel_s = time.perf_counter() - t0
-        want = be.run_sweep_reference([w.clone() for w in words], sweep, ncmp)
+        # the plain version sweeps the inputs themselves: at 2**31 words
+        # a third copy would crowd the card
+        want = be.run_sweep_reference(words, sweep, ncmp)
         torch.cuda.synchronize()
-        err = max(int((be.unsigned(a) - be.unsigned(b)).abs().max())
-                  for a, b in zip(got, want))
+        err = max_abs_err(got, want)
         ok = all(torch.equal(a, b) for a, b in zip(got, want))
         log("3 kernel-vs-plain",
             f"{label}: c={sweep.c} g={sweep.g} j_lo={sweep.j_lo} "
@@ -1816,13 +1843,123 @@ def phase_partition(card: str) -> int:
 
 
 def phase_psort(card: str) -> int:
-    _one_rank_group()
-    try:
-        launches = phase_psort_main(card)
-        phase_psort_local(card)
-    finally:
-        dist.destroy_process_group()
+    """Phase 11 on the running one-rank group (``_one_rank_group``)."""
+    launches = phase_psort_main(card)
+    phase_psort_local(card)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the harness layer (bench, matrix, drives, examples, entry,
+# scaling, the flagship plan)
+# ---------------------------------------------------------------------------
+
+
+def host_memory() -> str:
+    """The host's total and available memory (/proc/meminfo)."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            info[key] = int(value.split()[0]) * 1024
+    return (f"host memory {info['MemTotal'] / 2**30:.3f} GiB, available "
+            f"{info['MemAvailable'] / 2**30:.3f} GiB")
+
+
+def _step(what: str, fn):
+    """Run one harness step, collecting the lines it prints; log its time
+    and its last line. Returns (result, lines)."""
+    lines = []
+    t0 = time.perf_counter()
+    result = fn(lines.append)
+    log("13 harness", f"{what}: {time.perf_counter() - t0:.3f} s; "
+        f"{lines[-1] if lines else ''}")
+    return result, lines
+
+
+def phase_harness(card: str) -> int:
+    """The harness layer in process, on the running one-rank group: the
+    bench at 2**28 and at the reference's u32Large n = 2**31 + 100 (both
+    --verify full), the matrix at 1M, 16M and 256M, verify_baseline,
+    nonpow2_sweep --big, drive --iters 8, the three examples, entry,
+    scaling at world size 1 and baseline_scale. Each step raises on a
+    failure. Returns the sweep kernel's launches of this path."""
+    from tinyhipradixsort_torch import bench
+    from tinyhipradixsort_torch import entry as entry_mod
+    from tinyhipradixsort_torch.benchmarks import full, scaling
+    from tinyhipradixsort_torch.examples import helloworld, segmented, soak
+    from tinyhipradixsort_torch.tools import (baseline_scale, drive,
+                                              nonpow2_sweep, verify_baseline)
+
+    be.KERNEL_LAUNCHES = 0
+    for n in (1 << 28, (1 << 31) + 100):
+        if n > 1 << 28:
+            log("13 harness", f"before the u32Large bench: {host_memory()}")
+        routes = []
+        be.MARK = lambda event, route, words: (
+            routes.append(route) if event == "route" else None)
+        t0 = time.perf_counter()
+        try:
+            line = bench.run(n, 5, "full", "auto", "cuda")
+        finally:
+            be.MARK = None
+        want = "padded" if n & (n - 1) == 0 else "segmented"
+        if routes[0] != want:
+            raise AssertionError(f"bench n={n}: route {routes[0]}, not {want}")
+        host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        log("13 harness", f"bench n={n} --verify full: "
+            f"{time.perf_counter() - t0:.3f} s in all, routes "
+            f"{ {r: routes.count(r) for r in dict.fromkeys(routes)} }, peak "
+            f"device memory {line['peak_device_bytes'] / 2**30:.3f} GiB "
+            f"(keys {4 * n / 2**30:.3f} GiB), the oracle took "
+            f"{line['oracle_s']:.3f} s, the process's peak host memory so "
+            f"far {host_peak / 2**20:.3f} GiB; card: {card}")
+        print(json.dumps(line), flush=True)
+        if line["oracle"] != "native":
+            log("13 harness", "the native oracle did not build; numpy's "
+                "stable sort checked the bench")
+        torch.cuda.empty_cache()
+
+    table, _ = _step("matrix --sizes 1M,16M,256M (best of 3, CUDA events)",
+                     lambda out: full.run(("1M", "16M", "256M"), 3, "auto",
+                                          "cuda", out=out))
+    for row in table["results"]:
+        log("13 harness", f"matrix {json.dumps(row)}")
+    torch.cuda.empty_cache()
+    _step("verify_baseline", lambda out: verify_baseline.verify("cuda",
+                                                                 out=out))
+    torch.cuda.empty_cache()
+    fails, lines = _step("nonpow2_sweep --big", lambda out: nonpow2_sweep.sweep(
+        "cuda", big=True, out=out))
+    routes = [ln.rsplit("route=", 1)[-1] for ln in lines if "route=" in ln]
+    log("13 harness", f"nonpow2_sweep: {len(routes)} cases, routes "
+        f"{ {r: routes.count(r) for r in dict.fromkeys(routes)} }")
+    if fails:
+        raise AssertionError("\n".join(ln for ln in lines
+                                       if ln.startswith("FAIL")))
+    d, lines = _step("drive --iters 8", lambda out: drive.drive(
+        "cuda", "auto", 8, out=out))
+    if d.fails:
+        raise AssertionError("\n".join(lines))
+    _step("examples.helloworld", lambda out: helloworld.run("cuda", out=out))
+    _step("examples.segmented", lambda out: segmented.run("cuda", out=out))
+    _step("examples.soak --iters 2", lambda out: soak.soak(
+        iters=2, dev="cuda", out=out))
+    _step("examples.soak --iters 2 --pairs", lambda out: soak.soak(
+        pairs=True, iters=2, dev="cuda", out=out))
+
+    _step("entry", lambda out: entry_mod.run("cuda", out=out))
+    rows, _ = _step("scaling --per-chip 16M at world size 1 (one-rank NCCL)",
+                    lambda out: scaling.run(1 << 24, plist=[1], dev="cuda",
+                                            out=out))
+    log("13 harness", f"scaling {json.dumps(rows)}; card: {card}")
+    bad, lines = _step("baseline_scale --P 64,128,256",
+                       lambda out: baseline_scale.report(out=out))
+    for line in lines[:-1]:
+        log("13 harness", line)
+    if bad:
+        raise AssertionError("baseline_scale found a problem in the plan")
+    return be.KERNEL_LAUNCHES
 
 
 def main() -> int:
@@ -1886,15 +2023,25 @@ def main() -> int:
     del x
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    psort_launches = phase_psort(card)
-    log("11 psort", f"done in {time.perf_counter() - t0:.3f} s, sweep kernel "
-        f"launches on the psort main path={psort_launches}")
+    # phases 11-13 share one one-rank NCCL group
+    _one_rank_group()
+    try:
+        t0 = time.perf_counter()
+        psort_launches = phase_psort(card)
+        log("11 psort", f"done in {time.perf_counter() - t0:.3f} s, sweep "
+            f"kernel launches on the psort main path={psort_launches}")
 
-    t0 = time.perf_counter()
-    part_launches = phase_partition(card)
-    log("12 partition", f"done in {time.perf_counter() - t0:.3f} s, sweep "
-        f"kernel launches on the partition main path={part_launches}")
+        t0 = time.perf_counter()
+        part_launches = phase_partition(card)
+        log("12 partition", f"done in {time.perf_counter() - t0:.3f} s, sweep "
+            f"kernel launches on the partition main path={part_launches}")
+
+        t0 = time.perf_counter()
+        harness_launches = phase_harness(card)
+        log("13 harness", f"done in {time.perf_counter() - t0:.3f} s, sweep "
+            f"kernel launches on the harness path={harness_launches}")
+    finally:
+        dist.destroy_process_group()
     log("done", f"{time.perf_counter() - t_all:.3f} s in all")
 
     def entry(name, launches, err, ms, plain_ms, nbytes, ops, library_ms):
@@ -1916,9 +2063,10 @@ def main() -> int:
     sweep = _plan(28, 1, be.EngineTuning())[0]
     print(card, flush=True)
     print(json.dumps({"kernels": [
-        # launches: the bitonic main path (phase 4), psort's (phase 11) and
-        # the partition front-end's (phase 12)
-        entry("bitonic_sweep", launches + psort_launches + part_launches,
+        # launches: the bitonic main path (phase 4), psort's (phase 11),
+        # the partition front-end's (phase 12) and the harness's (phase 13)
+        entry("bitonic_sweep",
+              launches + psort_launches + part_launches + harness_launches,
               worst, kernel_ms,
               plain_ms,
               2 * 4 * (1 << 28), 2 * len(sweep.substages) * (1 << 27), None),

@@ -414,6 +414,25 @@ def test_psort_pairs_on_a_one_rank_nccl_group(cuda, tmp_path):
     np.testing.assert_array_equal(perm.cpu().numpy(), p)
 
 
+def test_scaling_on_a_one_rank_nccl_group(cuda, tmp_path):
+    # the weak-scaling harness as phase 13 of chip_smoke.py calls it: the
+    # device given as "cuda", timed after an NCCL barrier on the rank's card
+    from tinyhipradixsort_torch.benchmarks import scaling
+
+    multihost.initialize(backend="nccl",
+                         init_method=f"file://{tmp_path / 'store'}",
+                         world_size=1, rank=0)
+    lines = []
+    try:
+        rows = scaling.run(1 << 20, plist=[1], reps=2, dev="cuda",
+                           out=lines.append)
+    finally:
+        dist.destroy_process_group()
+    assert [r["devices"] for r in rows] == [1] and len(lines) == 1
+    assert rows[0]["weak_scaling_efficiency"] == 1.0
+    assert rows[0]["wire"] == {"ring": 1} and rows[0]["seconds"] > 0
+
+
 def test_partition_route_through_sort_pairs(cuda, monkeypatch):
     # the MSB-partition front-end at 2**24 u32+u32 pairs (its default
     # partition_min_n), bit-exact against the direct network and numpy

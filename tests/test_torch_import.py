@@ -1,5 +1,5 @@
-"""Importing the PyTorch port loads neither JAX nor Triton and builds
-nothing: each CUDA kernel is compiled only at its first use on a CUDA
+"""Importing the PyTorch port, its harness scripts included, loads neither
+JAX, the JAX package nor Triton and builds nothing: each CUDA kernel is compiled only at its first use on a CUDA
 tensor, and the native host oracle at its first call."""
 
 import os
@@ -19,8 +19,14 @@ from tinyhipradixsort_torch.ops import partition_engine
 from tinyhipradixsort_torch.tools import gather_floor, partition_dma_floor
 from tinyhipradixsort_torch.parallel import dryrun, multihost, psort
 from tinyhipradixsort_torch.utils import native_oracle, prng, profiling
+from tinyhipradixsort_torch import bench, entry
+from tinyhipradixsort_torch.benchmarks import full, scaling
+from tinyhipradixsort_torch.examples import helloworld, segmented, soak
+from tinyhipradixsort_torch.tools import (baseline_scale, drive,
+                                          nonpow2_sweep, verify_baseline)
 loaded = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "triton"))
+                if m.split(".")[0] in ("jax", "jaxlib", "triton",
+                                       "tinyhipradixsort_tpu"))
 assert not loaded, loaded
 assert not cuda_lib.BUILD_INFO
 assert not native_oracle._tried

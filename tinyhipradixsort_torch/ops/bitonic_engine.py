@@ -214,17 +214,6 @@ def _ceil_log2(n: int) -> int:
     return (max(n, 1) - 1).bit_length()
 
 
-def _stage_groups(substages):
-    """Group consecutive substages by stage k: [(k, [j, ...]), ...]."""
-    groups: list[tuple[int, list[int]]] = []
-    for k, j in substages:
-        if groups and groups[-1][0] == k:
-            groups[-1][1].append(j)
-        else:
-            groups.append((k, [j]))
-    return groups
-
-
 @dataclass(frozen=True)
 class EngineTuning:
     """Sweep-planner knobs, read from ``THRS_<FIELD>`` environment variables
@@ -304,7 +293,8 @@ KERNEL_LAUNCHES = 0
 
 
 def _lex_lt(a: list, b: list) -> torch.Tensor:
-    """a <_lex b elementwise over equal-length lists of widened words."""
+    """a <_lex b elementwise over equal-length lists of words that order
+    as their tensors' dtype orders."""
     lt = a[-1] < b[-1]
     for w in range(len(a) - 2, -1, -1):
         lt = (a[w] < b[w]) | ((a[w] == b[w]) & lt)
@@ -332,26 +322,29 @@ def run_sweep_reference(words: list, sweep: Sweep, ncmp: int) -> list:
     """
     _check_span(words, sweep)
     n = words[0].shape[0]
-    for k, js in _stage_groups(sweep.substages):
-        desc = None
+    for k, j in sweep.substages:
+        d = 1 << j
+        views = [w.view(-1, 2, d) for w in words]
+        lo = [v[:, 0] for v in views]
+        hi = [v[:, 1] for v in views]
+        # int32 with the sign bit flipped orders as the unsigned word does
+        lo_u = [x ^ _INT32_MIN for x in lo[:ncmp]]
+        hi_u = [x ^ _INT32_MIN for x in hi[:ncmp]]
+        swap = _lex_lt(hi_u, lo_u)
         if k != sweep.forced_asc:
-            idx = torch.arange(n, dtype=torch.int64, device=words[0].device)
-            desc = ((idx >> k) & 1) == 1
-        for j in js:
-            d = 1 << j
-            views = [w.view(-1, 2, d) for w in words]
-            lo = [v[:, 0] for v in views]
-            hi = [v[:, 1] for v in views]
-            lo_u = [unsigned(x) for x in lo[:ncmp]]
-            hi_u = [unsigned(x) for x in hi[:ncmp]]
-            swap = _lex_lt(hi_u, lo_u)
-            if desc is not None:
-                swap = torch.where(desc.view(-1, 2, d)[:, 0],
-                                   _lex_lt(lo_u, hi_u), swap)
-            for v, x, y in zip(views, lo, hi):
-                nx, ny = torch.where(swap, y, x), torch.where(swap, x, y)
-                v[:, 0] = nx
-                v[:, 1] = ny
+            # element i sits in pair row i >> (j + 1); as k > j, bit k of i
+            # is bit k - j - 1 of its row
+            row = torch.arange(n >> (j + 1), device=words[0].device)
+            row >>= k - j - 1
+            row &= 1
+            desc = row.view(-1, 1) == 1
+            del row
+            swap = torch.where(desc, _lex_lt(lo_u, hi_u), swap)
+            del desc
+        for v, x, y in zip(views, lo, hi):
+            nx, ny = torch.where(swap, y, x), torch.where(swap, x, y)
+            v[:, 0] = nx
+            v[:, 1] = ny
     return words
 
 

@@ -668,6 +668,13 @@ def capacity_plan(n: int, P_: int, *, oversample=None, slack=None,
                         refine=refine_arg)
 
 
+def index_words(n: int, force_wide: bool = False) -> int:
+    """Words of the global index for a global ``n``: a global n >= 2**32
+    needs the u64 index, (hi, lo); below it one word rides every sort and
+    exchange (``force_wide`` takes the wide index at any n)."""
+    return 2 if force_wide or n >= 1 << 32 else 1
+
+
 def _spans(lengths: list) -> list:
     """(offset, length) of each rank's piece of the global array."""
     out, off = [], 0
@@ -738,9 +745,7 @@ def _psort_entry(keys, leaves, *, group, descending, method, oversample,
 
     lengths = [x[0] for x in _all_gather_ints([keys.shape[0]], dev, group)]
     n = sum(lengths)
-    # a global n >= 2**32 needs the u64 index, (hi, lo); below it one word
-    # rides every sort and exchange (_force_wide takes the wide path at any n)
-    n_idx = 2 if _force_wide or n >= 1 << 32 else 1
+    n_idx = index_words(n, _force_wide)
     plan = capacity_plan(n, P_, oversample=oversample, slack=slack,
                          refine=refine, _unsafe_cap=_unsafe_cap)
     B = plan.B

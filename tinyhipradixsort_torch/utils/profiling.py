@@ -15,7 +15,7 @@ import time
 
 import torch
 
-__all__ = ["Stopwatch", "time_fn", "trace"]
+__all__ = ["Stopwatch", "call_times", "time_call", "time_fn", "trace"]
 
 
 def _sync() -> None:
@@ -61,25 +61,38 @@ def _first_tensor(tree):
     return None
 
 
-def _timer(on_cuda: bool):
-    """A function that times one call of ``fn(*args)`` in seconds: CUDA
-    events on the card, the host clock otherwise."""
-    if on_cuda:
-        def timed(fn, args):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn(*args)
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end) / 1e3
-        return timed
+def _on_cuda(args) -> bool:
+    leaf = _first_tensor(args)
+    return leaf is not None and leaf.is_cuda
 
-    def timed(fn, args):
-        t0 = time.perf_counter()
+
+def time_call(fn, *args, on_cuda: bool | None = None):
+    """One call of ``fn(*args)``: ``(seconds, result)``. CUDA events when
+    ``on_cuda`` (by default: when the first tensor argument is on a CUDA
+    device), the host clock otherwise."""
+    if on_cuda is None:
+        on_cuda = _on_cuda(args)
+    if on_cuda:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3, out
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return time.perf_counter() - t0, out
+
+
+def call_times(fn, *args, reps: int = 5, warmup: int = 1) -> list:
+    """The time of each of ``reps`` calls of ``fn(*args)`` in seconds,
+    after ``warmup`` untimed calls (:func:`time_call`)."""
+    on_cuda = _on_cuda(args)
+    for _ in range(max(warmup, 1)):
         fn(*args)
-        return time.perf_counter() - t0
-    return timed
+    _sync()
+    return [time_call(fn, *args, on_cuda=on_cuda)[0] for _ in range(reps)]
 
 
 def time_fn(fn, *args, reps: int = 5, warmup: int = 1,
@@ -90,17 +103,13 @@ def time_fn(fn, *args, reps: int = 5, warmup: int = 1,
     when that tensor is on a CUDA device, the host clock otherwise.
     Returns ``(best_s, floor_s)``."""
     leaf = _first_tensor(args)
-    timed = _timer(leaf is not None and leaf.is_cuda)
-    for _ in range(max(warmup, 1)):
-        fn(*args)
-    _sync()
-    best = min(timed(fn, args) for _ in range(reps))
+    best = min(call_times(fn, *args, reps=reps, warmup=warmup))
     floor = 0.0
     if subtract_floor and leaf is not None:
         def triv(a):
             return a if a.dtype == torch.bool else a + 1
         triv(leaf)
-        floor = min(timed(triv, (leaf,)) for _ in range(reps))
+        floor = min(time_call(triv, leaf)[0] for _ in range(reps))
     return max(best - floor, 0.0), floor
 
 
