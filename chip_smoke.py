@@ -59,7 +59,10 @@ Phases, one output line each (time, kernel launches, result):
    against the numpy oracle, each counting case required to launch the
    histogram kernel;
 9. probes: the gather-floor and partition-scatter probes through their
-   tool entry points, each kernel required equal to its plain version;
+   tool entry points, each kernel required equal to its plain version; the
+   gather floor at its default shape (m = 4096, 2048 rounds) and at the
+   rate shape (2**18 rounds, which the kernel report carries), each beside
+   its bound and its share of it;
 10. timing of the new kernels and engine: the histogram at 2**28 beside its
    plain version, torch.bincount and its bound; counting sort_keys u32 at
    2**28 beside torch.sort and the bitonic sort_keys, with its per-stage
@@ -142,6 +145,7 @@ from tinyhipradixsort_torch.parallel import dryrun  # noqa: E402
 from tinyhipradixsort_torch.parallel import multihost  # noqa: E402
 from tinyhipradixsort_torch.parallel import psort  # noqa: E402
 from tinyhipradixsort_torch.tools import H100_BYTES_PER_S  # noqa: E402
+from tinyhipradixsort_torch.tools import H100_INT_OPS_PER_S  # noqa: E402
 from tinyhipradixsort_torch.tools import card as card_line  # noqa: E402
 from tinyhipradixsort_torch.tools import cuda_ms  # noqa: E402
 from tinyhipradixsort_torch.tools import gather_floor as gf  # noqa: E402
@@ -156,12 +160,6 @@ KERNELS = {
     "gather_floor": "tools/gather_floor.py:43",
     "partition_scatter": "tools/partition_dma_floor.py:43",
 }
-# 32-bit integer operations (compare, min/max, logic, add) outside the
-# tensor cores: they issue at 64 lanes per SM on the H100 SXM, so
-# 132 SMs x 64 lanes x 1.98 GHz (boost clock) = 16.7e12 a second. (67e12 is
-# the float32 rate counted as two FLOPs per fused multiply-add; it does not
-# apply to integer work.)
-INT_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def log(phase: str, msg: str) -> None:
@@ -1295,11 +1293,8 @@ def phase_probes(card: str) -> tuple[dict, dict, int, int]:
     s1k = pdf.measure(1024, 8, 1024, 5)
     g_launches, s_launches = gf.KERNEL_LAUNCHES, pdf.KERNEL_LAUNCHES
     for r in (g, g_rate):
-        log("9 probes", f"gather_floor m={r['m']} rounds={r['rounds']}: "
-            f"kernel {r['ms']:.6f} ms -> {r['ns_per_load']:.6f} ns/load = "
-            f"{r['gloads_per_s']:.4f} Gloads/s; plain version "
-            f"{r['plain_ms']:.6f} ms; checksum {r['checksum']:#010x} equal "
-            f"to the plain version; median of 5, CUDA events; card: {card}")
+        log("9 probes", f"gather_floor {gf.describe(r)} to the plain version;"
+            f" median of 5, CUDA events; card: {card}")
     log("9 probes", f"device-memory gather src[perm] of 2**28 u32 (counting "
         f"stage 3's gather): {dev['ms']:.6f} ms -> {dev['gelems_per_s']:.4f} "
         f"Gelem/s, {dev['tb_per_s']:.4f} TB/s (bound {dev['bound_ms']:.6f} "
@@ -1316,7 +1311,7 @@ def phase_probes(card: str) -> tuple[dict, dict, int, int]:
         f"partition_scatter={s_launches}")
     if g_launches == 0 or s_launches == 0:
         raise AssertionError("a probe did not launch its kernel")
-    return g, s1k, g_launches, s_launches
+    return g_rate, s1k, g_launches, s_launches
 
 
 # ---------------------------------------------------------------------------
@@ -2044,16 +2039,20 @@ def main() -> int:
         dist.destroy_process_group()
     log("done", f"{time.perf_counter() - t_all:.3f} s in all")
 
-    def entry(name, launches, err, ms, plain_ms, nbytes, ops, library_ms):
-        """One kernel's report; its bound is the larger of its bytes at the
-        memory rate and its 32-bit operations at the integer rate."""
-        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / INT_OPS_PER_S
+    def bound(nbytes, ops):
+        """The larger of a kernel's bytes at the memory rate and its 32-bit
+        operations at the integer rate, in ms, and which of the two."""
+        t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_INT_OPS_PER_S
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    def entry(name, launches, err, ms, plain_ms, bound_, library_ms):
+        """One kernel's report; ``bound_`` is its (bound_ms, bound_by)."""
         return {"name": name, "route": "cuda",
                 "source": f"tinyhipradixsort_torch/csrc/{name}.cu",
                 "replaces": KERNELS[name], "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(t_bytes, t_ops) * 1e3,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_ms": bound_[0], "bound_by": bound_[1],
                 "library_ms": library_ms}
 
     # the timed sweep (phase 5): the first local sweep of the 2**28
@@ -2069,15 +2068,19 @@ def main() -> int:
               launches + psort_launches + part_launches + harness_launches,
               worst, kernel_ms,
               plain_ms,
-              2 * 4 * (1 << 28), 2 * len(sweep.substages) * (1 << 27), None),
+              bound(2 * 4 * (1 << 28), 2 * len(sweep.substages) * (1 << 27)),
+              None),
         # digit extraction: a shift, a mask and an add per word
         entry("digit_histogram", hist_launches, hist_err, h["ms"],
-              h["plain_ms"], h["bytes"], 3 * (1 << 28), h["library_ms"]),
-        # an index load, an add and a dynamic load per (round, element)
+              h["plain_ms"], bound(h["bytes"], 3 * (1 << 28)),
+              h["library_ms"]),
+        # at the rate shape (2**18 rounds), where the loads set the time;
+        # its bound is the probe's own: one shared-memory load operation
+        # per (round, element) at one conflict-free wavefront a clock per SM
         entry("gather_floor", g_launches, 0, g["ms"], g["plain_ms"],
-              g["bytes"], 3 * g["loads"], None),
+              (g["bound_ms"], g["bound_by"]), None),
         entry("partition_scatter", s_launches, 0, s["ms"], s["plain_ms"],
-              s["bytes"], 0, s["library_ms"]),
+              bound(s["bytes"], 0), s["library_ms"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

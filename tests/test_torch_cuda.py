@@ -347,13 +347,42 @@ def test_numpy_inputs_go_to_the_card(cuda):
     assert tthrs.segment_ids_from_offsets([0, 10], 20).is_cuda
 
 
-@pytest.mark.parametrize("m,rounds", [(1, 5), (4096, 2048), (16384, 3)])
+@pytest.mark.parametrize("m,rounds", [
+    (1, 5), (4096, 2048), (16384, 3),
+    (8, 100), (16, 33),        # m < 32: lanes wrap inside the table
+    (4096, 1000),              # rounds not a multiple of 32
+    (4096, 1),                 # fewer rounds than blocks
+    (4096, 0),                 # no rounds: the checksum is 0
+    (4096, 1 << 18),           # the rate shape
+    (16384, 4096)])
 def test_gather_floor_kernel_matches_plain_version(cuda, m, rounds):
     idx, src = tgf.make_tables(m, seed=m)
     before = tgf.KERNEL_LAUNCHES
     got = tgf.gather_checksum(idx, src, rounds)
+    # no rounds launch no kernel: the zeroed word is the checksum
+    assert tgf.KERNEL_LAUNCHES == before + (rounds > 0)
+    assert torch.equal(got, tgf.gather_checksum_reference(idx, src, rounds))
+
+
+@pytest.mark.parametrize("rounds", [1000, (1 << 18) + 5])
+def test_gather_floor_kernel_on_a_non_permutation(cuda, rounds):
+    # repeated indices and words above m: for a permutation the checksum
+    # would be rounds * sum(src) (rounds is no multiple of m), so a kernel
+    # that relied on idx being one gives itself away here
+    m = 4096
+    rng = np.random.default_rng(rounds)
+    idx_np = rng.integers(0, m, size=m).astype(np.uint32)
+    idx_np[:64] += np.uint32(3 << 30)
+    assert len(np.unique(idx_np & (m - 1))) < m
+    src_np = rng.integers(0, 2**32, size=m, dtype=np.uint32)
+    idx = torch.from_numpy(idx_np.view(np.int32)).to(cuda).view(1, m)
+    src = torch.from_numpy(src_np.view(np.int32)).to(cuda).view(1, m)
+    before = tgf.KERNEL_LAUNCHES
+    got = tgf.gather_checksum(idx, src, rounds)
     assert tgf.KERNEL_LAUNCHES == before + 1
     assert torch.equal(got, tgf.gather_checksum_reference(idx, src, rounds))
+    as_perm = (rounds * int(src_np.sum(dtype=np.uint64))) & 0xFFFFFFFF
+    assert int(got.item()) & 0xFFFFFFFF != as_perm
 
 
 @pytest.mark.parametrize("r,t", [(1024, 8), (1000, 3), (7, 2)])

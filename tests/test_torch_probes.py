@@ -28,7 +28,8 @@ def _numpy_checksum(idx_np, src_np, m, rounds):
 
 
 @pytest.mark.parametrize("m,rounds", [(1, 3), (64, 5), (1024, 300),
-                                      (4096, 7), (16384, 2)])
+                                      (4096, 7), (16384, 2), (8, 33),
+                                      (16384, 40)])
 def test_gather_checksum_matches_the_tools_numpy_check(m, rounds):
     idx, src = tgf.make_tables(m, seed=m, device="cpu")
     before = tgf.KERNEL_LAUNCHES

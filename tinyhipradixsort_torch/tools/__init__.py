@@ -15,6 +15,15 @@ import numpy as np
 import torch
 
 H100_BYTES_PER_S = 3.35e12  # HBM3 of an H100 SXM (NVIDIA's data sheet)
+# 32-bit integer operations (compare, min/max, logic, add) outside the
+# tensor cores: they issue at 64 lanes per SM on the H100 SXM, so
+# 132 SMs x 64 lanes x 1.98 GHz (boost clock) = 16.7e12 a second. (67e12 is
+# the float32 rate counted as two FLOPs per fused multiply-add; it does not
+# apply to integer work.)
+H100_INT_OPS_PER_S = 132 * 64 * 1.98e9
+# 4-byte shared-memory loads without bank conflicts: one wavefront (a word
+# from each of the 32 banks) per clock per SM, 132 x 32 x 1.98e9 = 8.36e12
+H100_SHARED_LOADS_PER_S = 132 * 32 * 1.98e9
 
 _SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 _UNSIGNED = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}

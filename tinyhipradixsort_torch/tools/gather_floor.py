@@ -8,10 +8,17 @@ two floors of that:
 * the rate of dynamic loads from an on-chip table: the checksum
   ``sum_o sum_i src[(idx[i] + o) & (m - 1)] mod 2**32`` over ``rounds``
   passes of an m-element permutation ``idx``, computed by the hand-written
-  kernel ``csrc/gather_floor.cu`` (the tables in shared memory), beside its
-  plain PyTorch version :func:`gather_checksum_reference`;
+  kernel ``csrc/gather_floor.cu`` (the tables in shared memory, each warp
+  on one element and 32 consecutive rounds, so every load instruction is
+  one bank-conflict-free wavefront), beside its plain PyTorch version
+  :func:`gather_checksum_reference` and its bound, the loads at one
+  wavefront (32 loads) a clock per SM;
 * the rate of the device-memory gather ``src[perm]`` of n 32-bit words by a
   random permutation (the stage-3 gather itself, a PyTorch index op).
+
+Two shapes matter: the default (m = 4096, 2048 rounds, 8.4M loads), where
+one launch takes longer than the loads, and the rate shape (2**18 rounds,
+1.07e9 loads), where the loads set the time.
 
 Usage (on a machine with an NVIDIA GPU):
     python -m tinyhipradixsort_torch.tools.gather_floor [--m 4096]
@@ -23,15 +30,18 @@ from __future__ import annotations
 import argparse
 import ctypes
 import functools
+import statistics
 
 import numpy as np
 import torch
 
 from ..ops import common, cuda_lib
-from . import H100_BYTES_PER_S, card, cuda_ms, require_cuda
+from ..utils.profiling import trace
+from . import (H100_BYTES_PER_S, H100_SHARED_LOADS_PER_S, card, cuda_ms,
+               require_cuda)
 
 #: launches of the CUDA gather-floor kernel in this process (counted only
-#: where the kernel is launched)
+#: where the kernel is launched: a call with no rounds launches none)
 KERNEL_LAUNCHES = 0
 
 
@@ -96,7 +106,8 @@ def _launch_gather(idx: torch.Tensor, src: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"gather floor kernel launch failed: CUDA error "
                            f"{rc} (m={m} rounds={rounds})")
-    KERNEL_LAUNCHES += 1
+    if rounds:  # with no rounds the zeroed out is the checksum
+        KERNEL_LAUNCHES += 1
     return out
 
 
@@ -112,10 +123,32 @@ def gather_checksum(idx: torch.Tensor, src: torch.Tensor,
     return gather_checksum_reference(idx, src, rounds)
 
 
+def kernel_device_ms(fn, reps: int):
+    """Median device time in ms of the gather-floor kernels that ``fn()``
+    launches, over ``reps`` calls, as ``torch.profiler`` traces them (the
+    kernel alone, without the host's enqueue); None where the trace holds
+    no such kernel."""
+    fn()
+    torch.cuda.synchronize()
+    with trace() as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+             if ev.device_type != torch.autograd.DeviceType.CPU
+             and "gather_floor_kernel" in ev.name]
+    return statistics.median(times) if times else None
+
+
 def measure(m: int = 4096, rounds: int = 2048, reps: int = 5,
             seed: int = 0) -> dict:
-    """Kernel and plain-version checksums and times on the card (CUDA
-    events, median of ``reps`` after a warm-up); raises if they differ."""
+    """Kernel and plain-version checksums and times on the card; raises if
+    they differ. ``ms``: one call (CUDA events around it, median of
+    ``reps`` after a warm-up), the host's enqueue of the call included;
+    ``device_ms``: the kernel alone, from the profiler. ``bound_ms`` is the
+    larger of the bytes at 3.35 TB/s and the loads at one conflict-free
+    shared-memory wavefront (32 loads) a clock per SM, ``bound_by`` which
+    of the two; ``pct_of_bound`` is its share of ``ms``."""
     idx, src = make_tables(m, seed)
     got = gather_checksum(idx, src, rounds)
     want = gather_checksum_reference(idx, src, rounds)
@@ -123,13 +156,35 @@ def measure(m: int = 4096, rounds: int = 2048, reps: int = 5,
         raise AssertionError(f"gather floor kernel {got.item()} != plain "
                              f"version {want.item()} (m={m} rounds={rounds})")
     ms = cuda_ms(lambda: gather_checksum(idx, src, rounds), reps)
+    device_ms = kernel_device_ms(lambda: gather_checksum(idx, src, rounds),
+                                 reps)
     plain_ms = cuda_ms(lambda: gather_checksum_reference(idx, src, rounds),
                        reps)
     loads = m * rounds
+    nbytes = 8 * m + 4
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_loads = loads / H100_SHARED_LOADS_PER_S
+    bound_ms = max(t_bytes, t_loads) * 1e3
     return {"m": m, "rounds": rounds, "checksum": int(got.item()) & 0xFFFFFFFF,
-            "ms": ms, "plain_ms": plain_ms, "loads": loads,
-            "ns_per_load": ms * 1e6 / loads, "gloads_per_s": loads / ms / 1e6,
-            "bytes": 8 * m + 4}
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+            "loads": loads, "ns_per_load": ms * 1e6 / loads,
+            "gloads_per_s": loads / ms / 1e6, "bytes": nbytes,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_loads else "operations",
+            "pct_of_bound": 100 * bound_ms / ms}
+
+
+def describe(r: dict) -> str:
+    """One line for a :func:`measure` result."""
+    dev = ("not traced" if r["device_ms"] is None
+           else f"{r['device_ms']:.6f} ms")
+    return (f"m={r['m']} rounds={r['rounds']} ({r['loads']} loads): kernel "
+            f"{r['ms']:.6f} ms a call -> {r['ns_per_load']:.6f} ns/load = "
+            f"{r['gloads_per_s']:.4f} Gloads/s, {r['pct_of_bound']:.1f}% of "
+            f"its bound {r['bound_ms']:.6f} ms ({r['bound_by']}: a "
+            f"conflict-free shared-memory wavefront a clock per SM); kernel "
+            f"alone (profiler) {dev}; plain version {r['plain_ms']:.6f} ms; "
+            f"checksum {r['checksum']:#010x} equal")
 
 
 def measure_device_gather(n: int = 1 << 28, reps: int = 5,
@@ -160,10 +215,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     require_cuda("gather_floor")
     r = measure(args.m, args.rounds, args.reps)
-    print(f"m={r['m']} rounds={r['rounds']}: kernel {r['ms']:.6f} ms -> "
-          f"{r['ns_per_load']:.6f} ns/load = {r['gloads_per_s']:.4f} "
-          f"Gloads/s; plain version {r['plain_ms']:.6f} ms; checksum "
-          f"{r['checksum']:#010x} equal; card: {card()}")
+    print(f"{describe(r)}; card: {card()}")
     g = measure_device_gather(args.gather_n, args.reps)
     print(f"device-memory gather src[perm] of {g['n']} u32: {g['ms']:.6f} ms "
           f"-> {g['gelems_per_s']:.4f} Gelem/s, {g['tb_per_s']:.4f} TB/s "

@@ -122,7 +122,8 @@ def trace(log_dir: str | None = None):
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities,
+                                acc_events=True) as prof:
         yield prof
     if log_dir is not None:
         os.makedirs(log_dir, exist_ok=True)
