@@ -9,12 +9,14 @@ Run from the root of the repository, on a machine with a Hopper card
 Phases, one output line each (time, kernel launches, result):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the four kernels (bitonic sweep, digit histogram, gather floor,
-   partition scatter), one nvcc each, all started together, from csrc/ into
-   the ignored _build/, with each one's nvcc time and, for each kernel
-   function (each word count of the sweep's register body), ptxas registers
+2. build: the five kernels (bitonic sweep, digit histogram, the counting
+   engine's rank-and-scatter, gather floor, partition scatter), one nvcc
+   each, all started together, from csrc/ into the ignored _build/, with
+   each one's nvcc time and, for each kernel function (each word count of
+   the sweep's register body, each type of a template), ptxas registers
    and spill bytes (kept beside a reused library); the main path's 1-, 3-
-   and 5-word instantiations are required to spill nothing;
+   and 5-word instantiations and the four rank-and-scatter ones (u32/u64
+   bits, int32/int64 src) are required to spill nothing;
 3. kernel vs plain: sweeps of 1, 2, 3, 4, 5, 8 and 12 words (local, cross,
    forced ascending) on 2**20 random words, the cross sweeps over the top
    index bits of the 2**28 and 2**31 one-word and 2**24 three-word
@@ -51,22 +53,29 @@ Phases, one output line each (time, kernel launches, result):
 7. histogram kernel vs plain: ``digit_histogram`` through the kernel and
    through ``digit_histogram_reference`` (u32 at 2**20 and 2**28, shifts
    0/8/16/24, tiles 8192 and 2048, widths 1, 2, 5 and 12, an odd tile, an n
-   that is no tile multiple, u64 with shift 40), required bit-equal;
+   that is no tile multiple, u64 with shift 40), required bit-equal; then
+   ``rank_scatter`` through the kernel and through
+   ``rank_scatter_reference`` (2**28 u32 at width 8 and tile 2048, the main
+   path's pass; a u64 pass at shift 56; a 3-bit last digit; 3 rows; int64
+   src; a multi-chunk tile; skewed digits), src and bits both bit-equal;
 8. portable path: the public entry points with method="counting" (u32 at
    160,000,000, pairs, f32 and f16/bf16 specials, u64 pairs, a window,
    descending f64, 2-D rows 4096x4096), "argsort" and "lsd_argsort"
    (pairs), and segment_ids= from segment_ids_from_offsets, each bit-exact
    against the numpy oracle, each counting case required to launch the
-   histogram kernel;
+   histogram and the rank-and-scatter kernels;
 9. probes: the gather-floor and partition-scatter probes through their
    tool entry points, each kernel required equal to its plain version; the
    gather floor at its default shape (m = 4096, 2048 rounds) and at the
    rate shape (2**18 rounds, which the kernel report carries), each beside
    its bound and its share of it;
 10. timing of the new kernels and engine: the histogram at 2**28 beside its
-   plain version, torch.bincount and its bound; counting sort_keys u32 at
-   2**28 beside torch.sort and the bitonic sort_keys, with its per-stage
-   breakdown;
+   plain version, torch.bincount and its bound; the rank-and-scatter kernel
+   on one pass at 2**28 u32 (width 8, tile 2048) and at 2**28 u64 beside
+   its plain version, torch.sort of the uint8 digits and its bound;
+   counting sort_keys u32 at 2**28 (checked against torch.sort, required
+   to launch both kernels) beside torch.sort and the bitonic sort_keys,
+   with its per-stage breakdown;
 11. the distributed sort on a one-rank NCCL group (NCCL allows one rank per
    card): psort_keys ascending, descending and with the two-word index
    (_force_wide), psort_pairs with a u32 payload, psort_indices with both
@@ -101,8 +110,11 @@ Phases, one output line each (time, kernel launches, result):
    beside torch.sort; ``tools.verify_baseline`` (2**28 u64+u64 pairs);
    ``tools.nonpow2_sweep --big`` (each case exact and on its route);
    ``tools.drive --iters 8``; the three examples (soak with --iters 2);
-   ``entry``; ``benchmarks.scaling`` at world size 1; and
-   ``tools.baseline_scale``. Each step raises on a failure.
+   ``entry``; ``benchmarks.scaling`` at world size 1;
+   ``tools.baseline_scale``; and the counting engine through the bench at
+   2**28 (--method counting, --verify full) and ``tools.drive --method
+   counting``, each required to launch the rank-and-scatter kernel. Each
+   step raises on a failure.
 
 The line before the last is the kernel report, {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero
@@ -157,6 +169,8 @@ SEED = 20260
 KERNELS = {
     "bitonic_sweep": "tinyhipradixsort_tpu/ops/bitonic_engine.py:267",
     "digit_histogram": "tinyhipradixsort_tpu/ops/histogram.py:38",
+    "rank_scatter": "no TPU kernel: jnp stage 3, "
+                    "tinyhipradixsort_tpu/ops/counting_engine.py:35",
     "gather_floor": "tools/gather_floor.py:43",
     "partition_scatter": "tools/partition_dma_floor.py:43",
 }
@@ -1021,9 +1035,14 @@ def timing_only() -> None:
 # ---------------------------------------------------------------------------
 
 
+#: Itanium-mangled template type arguments, as the report names them
+_MANGLED_TYPES = {"j": "u32", "y": "u64", "i": "i32", "x": "i64"}
+
+
 def ptxas_report(text: str) -> list:
     """(kernel, registers, spills) for each entry function in the output
-    of ``nvcc -Xptxas -v``; a template's word count is shown as <NW>."""
+    of ``nvcc -Xptxas -v``; a template's word count is shown as <NW>, its
+    type arguments as <u32,i32>."""
     rows, name, regs, spill = [], None, "", ""
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -1034,7 +1053,11 @@ def ptxas_report(text: str) -> list:
             m = re.match(r"_Z(\d+)(\w+)", mangled)
             name = m.group(2)[:int(m.group(1))] if m else mangled
             t = re.search(r"ILi(\d+)E", mangled)
-            name += f"<{t.group(1)}>" if t else ""
+            ty = re.match(r"I([jyix]+)E", m.group(2)[int(m.group(1)):]
+                          if m else "")
+            name += (f"<{t.group(1)}>" if t else
+                     f"<{','.join(_MANGLED_TYPES[c] for c in ty.group(1))}>"
+                     if ty else "")
         elif "spill" in ln:
             spill = ln.strip()
         elif "Used" in ln and "registers" in ln:
@@ -1045,8 +1068,11 @@ def ptxas_report(text: str) -> list:
 
 
 #: the sweep kernel's register-body instantiations on the main path (u32
-#: keys, u32 pairs, u64 pairs): ptxas must report no spill bytes for them
-NO_SPILL = ("sweep_registers<1>", "sweep_registers<3>", "sweep_registers<5>")
+#: keys, u32 pairs, u64 pairs) and the rank-and-scatter kernel's (u32/u64
+#: bits, int32/int64 src): ptxas must report no spill bytes for them
+NO_SPILL = ("sweep_registers<1>", "sweep_registers<3>", "sweep_registers<5>",
+            "rank_scatter_kernel<u32,i32>", "rank_scatter_kernel<u32,i64>",
+            "rank_scatter_kernel<u64,i32>", "rank_scatter_kernel<u64,i64>")
 
 
 def phase_build() -> None:
@@ -1128,6 +1154,73 @@ def phase_histogram() -> int:
             raise AssertionError(f"histogram kernel != plain version (n={n} "
                                  f"shift={shift} width={width} tile={tile})")
         worst = max(worst, err)
+    return worst
+
+
+def _stage2(bits: torch.Tensor, shift: int, width: int, tile: int, rows: int,
+            idx_dt: torch.dtype) -> torch.Tensor:
+    """The counting engine's stage 2 for ``rows`` rows of whole tiles: the
+    plain histogram's counts, each row's bucket-major exclusive scan, the
+    rows' offsets; ``(num_tiles, 2**width)`` in ``idx_dt``."""
+    counts = hist.digit_histogram_reference(bits, shift, width, tile)
+    Tr, nb = counts.shape[0] // rows, counts.shape[1]
+    base = hist.exclusive_scan_bucket_major(
+        counts.view(rows, Tr, nb).to(idx_dt))
+    row0 = torch.arange(rows, dtype=idx_dt, device=bits.device) * (Tr * tile)
+    return (base + row0.view(rows, 1, 1)).reshape(rows * Tr, nb)
+
+
+def rank_scatter_cases():
+    """(n, wide, shift, width, tile, rows, idx_dt, kind)."""
+    i32, i64 = torch.int32, torch.int64
+    return [(1 << 28, False, 0, 8, 2048, 1, i32, "random"),  # the main pass
+            (1 << 26, True, 56, 8, 2048, 1, i32, "random"),  # u64 bits
+            (1 << 24, False, 29, 3, 2048, 1, i32, "random"),  # 3-bit digit
+            (3 << 22, False, 8, 8, 2048, 3, i32, "random"),   # 3 rows
+            (1 << 24, False, 16, 8, 2048, 1, i64, "random"),  # int64 src
+            (1 << 24, True, 0, 8, 1 << 20, 4, i64, "random"),  # 512 chunks
+            (3072 << 12, False, 24, 8, 3072, 1, i32, "random"),  # odd tile
+            (1 << 22, False, 0, 8, 2048, 1, i32, "one"),
+            (1 << 22, False, 0, 8, 2048, 1, i32, "two")]
+
+
+def phase_rank_scatter() -> int:
+    """The rank-and-scatter kernel against its plain version: both outputs
+    bit-equal. Returns the largest absolute difference (0)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 77)
+    worst = 0
+    for n, wide, shift, width, tile, rows, idx_dt, kind in \
+            rank_scatter_cases():
+        bits = _random_bits(n, wide, gen)
+        if kind == "one":
+            bits[:] = bits[0].item()
+        elif kind == "two":
+            bits = torch.where(bits < 0, bits[0], ~bits[0])
+        base = _stage2(bits, shift, width, tile, rows, idx_dt)
+        before = counting_engine.KERNEL_LAUNCHES
+        got_bits, got_src = counting_engine.rank_scatter(
+            bits, shift, width, base, tile, idx_dt)
+        if counting_engine.KERNEL_LAUNCHES != before + 1:
+            raise AssertionError("rank_scatter did not launch its kernel")
+        want_bits, want_src = counting_engine.rank_scatter_reference(
+            bits, shift, width, base, tile, idx_dt)
+        torch.cuda.synchronize()
+        err = max(int((got_src.long() - want_src.long()).abs().max()),
+                  int((got_bits.long() - want_bits.long()).abs().max()))
+        ok = (got_src.dtype == idx_dt and torch.equal(got_src, want_src)
+              and torch.equal(got_bits, want_bits))
+        log("7 rank-scatter-vs-plain",
+            f"{'u64' if wide else 'u32'} n={n} shift={shift} width={width} "
+            f"tile={tile} rows={rows} src {str(idx_dt)[6:]} {kind}: "
+            f"max_abs_err={err} {'bit-equal' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"rank_scatter kernel != plain version "
+                                 f"(n={n} shift={shift} width={width} "
+                                 f"tile={tile} rows={rows} {kind})")
+        worst = max(worst, err)
+        del bits, base, got_bits, got_src, want_bits, want_src
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -1258,24 +1351,29 @@ def portable_cases():
     ]
 
 
-def phase_portable() -> int:
+def phase_portable() -> tuple[int, int]:
+    """Returns the histogram's and the rank-and-scatter kernel's launches."""
     rng = np.random.default_rng(SEED + 8)
     hist.KERNEL_LAUNCHES = 0
+    counting_engine.KERNEL_LAUNCHES = 0
     for label, method, run in portable_cases():
         before = hist.KERNEL_LAUNCHES
+        rs_before = counting_engine.KERNEL_LAUNCHES
         secs, check = run(rng)
         launches = hist.KERNEL_LAUNCHES - before
+        rs_launches = counting_engine.KERNEL_LAUNCHES - rs_before
         ok = check()
         log("8 portable-path", f"method={method} {label}: {secs * 1e3:.3f} ms "
             f"(host clock, synchronized) histogram launches={launches} "
+            f"rank_scatter launches={rs_launches} "
             f"{'bit-exact' if ok else 'MISMATCH'} vs numpy oracle")
         torch.cuda.empty_cache()
         if not ok:
             raise AssertionError(f"portable path output wrong: {method} {label}")
-        if method == "counting" and launches == 0:
+        if method == "counting" and (launches == 0 or rs_launches == 0):
             raise AssertionError(f"counting path did not launch the histogram "
-                                 f"kernel: {label}")
-    return hist.KERNEL_LAUNCHES
+                                 f"and rank_scatter kernels: {label}")
+    return hist.KERNEL_LAUNCHES, counting_engine.KERNEL_LAUNCHES
 
 
 # ---------------------------------------------------------------------------
@@ -1295,10 +1393,11 @@ def phase_probes(card: str) -> tuple[dict, dict, int, int]:
     for r in (g, g_rate):
         log("9 probes", f"gather_floor {gf.describe(r)} to the plain version;"
             f" median of 5, CUDA events; card: {card}")
-    log("9 probes", f"device-memory gather src[perm] of 2**28 u32 (counting "
-        f"stage 3's gather): {dev['ms']:.6f} ms -> {dev['gelems_per_s']:.4f} "
-        f"Gelem/s, {dev['tb_per_s']:.4f} TB/s (bound {dev['bound_ms']:.6f} "
-        f"ms); median of 5, CUDA events; card: {card}")
+    log("9 probes", f"device-memory gather src[perm] of 2**28 u32 (the "
+        f"counting engine's gather of each array): {dev['ms']:.6f} ms -> "
+        f"{dev['gelems_per_s']:.4f} Gelem/s, {dev['tb_per_s']:.4f} TB/s "
+        f"(bound {dev['bound_ms']:.6f} ms); median of 5, CUDA events; "
+        f"card: {card}")
     for r in (s64, s1k):
         log("9 probes", f"partition_scatter r={r['r']} w={r['w']} (unused) "
             f"t={r['t']} ({r['n']} u32): kernel {r['ms']:.6f} ms -> "
@@ -1350,11 +1449,80 @@ def phase_histogram_timing(x: torch.Tensor, card: str) -> dict:
     return result
 
 
+#: the rank-and-scatter kernel's integer operations per element at width
+#: w: the digit (a shift and a mask), w ballots and w selects for the peers,
+#: two popcounts and an add for the rank, three adds and the digit again to
+#: place it, two adds and the digit once more to write it
+def rank_scatter_ops(width: int) -> int:
+    return 2 * width + 14
+
+
+def phase_rank_scatter_timing(x: torch.Tensor, card: str) -> dict:
+    """One pass of the rank-and-scatter kernel at the main path's shape
+    (2**28 u32, shift 0, width 8, tile 2048), and on 2**28 u64 bits, beside
+    its plain version, torch.sort of the digits as uint8 (whose indices are
+    ``src`` for one row) and its bound."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 10)
+    tile, width, result = counting_engine.DEFAULT_TILE, 8, None
+    for bits in (x.view(torch.int32), None):
+        wide = bits is None
+        if wide:
+            bits = _random_bits(x.shape[0], True, gen)
+        n = bits.shape[0]
+        base = _stage2(bits, 0, width, tile, 1, torch.int32)
+        ms = cuda_ms(lambda: counting_engine.rank_scatter(
+            bits, 0, width, base, tile, torch.int32), 5)
+        plain_ms = cuda_ms(lambda: counting_engine.rank_scatter_reference(
+            bits, 0, width, base, tile, torch.int32), 5)
+        digits = (bits & 0xFF).to(torch.uint8)
+        library_ms = cuda_ms(lambda: torch.sort(digits, stable=True), 5)
+        _, src = counting_engine.rank_scatter(bits, 0, width, base, tile,
+                                              torch.int32)
+        if not torch.equal(torch.sort(digits, stable=True).indices,
+                           src.long()):
+            raise AssertionError("rank_scatter src != torch.sort's indices")
+        del digits, src
+        moved = 2 * n * bits.dtype.itemsize + 4 * n + 4 * base.numel()
+        ops = rank_scatter_ops(width) * n
+        bound_ms = max(moved / H100_BYTES_PER_S, ops / H100_INT_OPS_PER_S) * 1e3
+        log("10 timing", f"rank_scatter {'u64' if wide else 'u32'} n=2**28 "
+            f"width=8 tile={tile} int32 src, one pass: kernel {ms:.6f} ms "
+            f"({moved / ms / 1e9:.4f} TB/s), plain version {plain_ms:.6f} ms, "
+            f"torch.sort(uint8 digits, stable=True) {library_ms:.6f} ms "
+            f"(its indices equal src), bound {bound_ms:.6f} ms ({moved} bytes "
+            f"at 3.35 TB/s; {ops} integer operations take "
+            f"{ops / H100_INT_OPS_PER_S * 1e3:.6f} ms; kernel at "
+            f"{100 * bound_ms / ms:.1f}% of it); median of 5, CUDA events; "
+            f"card: {card}")
+        if result is None:
+            result = {"ms": ms, "plain_ms": plain_ms, "bytes": moved,
+                      "ops": ops, "library_ms": library_ms}
+        del base
+    del bits
+    torch.cuda.empty_cache()
+    return result
+
+
 def phase_counting_timing(x: torch.Tensor, bitonic_ms: float,
                           card: str) -> None:
     n = x.shape[0]
-    ms = cuda_ms(lambda: thrs.sort_keys(x, method="counting"), 5)
+    before = (hist.KERNEL_LAUNCHES, counting_engine.KERNEL_LAUNCHES)
+    got = thrs.sort_keys(x, method="counting")
     signed = x.view(torch.int32) ^ -2**31
+    want = (torch.sort(signed).values ^ -2**31).view(torch.uint32)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("counting sort_keys u32 n=2**28 != torch.sort")
+    if (hist.KERNEL_LAUNCHES == before[0]
+            or counting_engine.KERNEL_LAUNCHES == before[1]):
+        raise AssertionError("counting sort_keys did not launch the histogram "
+                             "and rank_scatter kernels")
+    del got, want
+    log("10 timing", f"counting sort_keys u32 n=2**28: bit-exact against "
+        f"torch.sort; histogram launches="
+        f"{hist.KERNEL_LAUNCHES - before[0]} rank_scatter launches="
+        f"{counting_engine.KERNEL_LAUNCHES - before[1]}")
+    ms = cuda_ms(lambda: thrs.sort_keys(x, method="counting"), 5)
     yard_ms = cuda_ms(lambda: torch.sort(signed, stable=True), 5)
     del signed
     log("10 timing", f"counting sort_keys u32 n=2**28: {ms:.3f} ms "
@@ -1877,8 +2045,10 @@ def phase_harness(card: str) -> int:
     bench at 2**28 and at the reference's u32Large n = 2**31 + 100 (both
     --verify full), the matrix at 1M, 16M and 256M, verify_baseline,
     nonpow2_sweep --big, drive --iters 8, the three examples, entry,
-    scaling at world size 1 and baseline_scale. Each step raises on a
-    failure. Returns the sweep kernel's launches of this path."""
+    scaling at world size 1 and baseline_scale; then the counting engine
+    through the bench at 2**28 and the drive. Each step raises on a
+    failure. Returns the sweep kernel's launches of this path and the
+    rank-and-scatter kernel's of its counting steps."""
     from tinyhipradixsort_torch import bench
     from tinyhipradixsort_torch import entry as entry_mod
     from tinyhipradixsort_torch.benchmarks import full, scaling
@@ -1954,7 +2124,25 @@ def phase_harness(card: str) -> int:
         log("13 harness", line)
     if bad:
         raise AssertionError("baseline_scale found a problem in the plan")
-    return be.KERNEL_LAUNCHES
+    sweep_launches = be.KERNEL_LAUNCHES
+
+    counting_engine.KERNEL_LAUNCHES = 0
+    line, _ = _step("bench --method counting --verify full (2**28)",
+                    lambda out: bench.run(1 << 28, 5, "full", "counting",
+                                          "cuda"))
+    print(json.dumps(line), flush=True)
+    bench_launches = counting_engine.KERNEL_LAUNCHES
+    torch.cuda.empty_cache()
+    d, lines = _step("drive --method counting", lambda out: drive.drive(
+        "cuda", "counting", 0, out=out))
+    if d.fails:
+        raise AssertionError("\n".join(lines))
+    log("13 harness", f"rank_scatter launches: bench "
+        f"{bench_launches}, drive "
+        f"{counting_engine.KERNEL_LAUNCHES - bench_launches}")
+    if bench_launches == 0 or counting_engine.KERNEL_LAUNCHES == bench_launches:
+        raise AssertionError("a counting step did not launch rank_scatter")
+    return sweep_launches, counting_engine.KERNEL_LAUNCHES
 
 
 def main() -> int:
@@ -2004,16 +2192,22 @@ def main() -> int:
         f"{time.perf_counter() - t0:.3f} s, max_abs_err={hist_err}")
 
     t0 = time.perf_counter()
-    hist_launches = phase_portable()
+    rs_err = phase_rank_scatter()
+    log("7 rank-scatter-vs-plain", f"all cases bit-equal in "
+        f"{time.perf_counter() - t0:.3f} s, max_abs_err={rs_err}")
+
+    t0 = time.perf_counter()
+    hist_launches, rs_launches = phase_portable()
     log("8 portable-path", f"all cases bit-exact in "
         f"{time.perf_counter() - t0:.3f} s, histogram launches="
-        f"{hist_launches}")
+        f"{hist_launches}, rank_scatter launches={rs_launches}")
 
     t0 = time.perf_counter()
     g, s, g_launches, s_launches = phase_probes(card)
     log("9 probes", f"done in {time.perf_counter() - t0:.3f} s")
 
     h = phase_histogram_timing(x, card)
+    r = phase_rank_scatter_timing(x, card)
     phase_counting_timing(x, sort_ms, card)
     del x
     torch.cuda.empty_cache()
@@ -2032,9 +2226,10 @@ def main() -> int:
             f"kernel launches on the partition main path={part_launches}")
 
         t0 = time.perf_counter()
-        harness_launches = phase_harness(card)
+        harness_launches, rs_harness = phase_harness(card)
         log("13 harness", f"done in {time.perf_counter() - t0:.3f} s, sweep "
-            f"kernel launches on the harness path={harness_launches}")
+            f"kernel launches on the harness path={harness_launches}, "
+            f"rank_scatter launches on its counting steps={rs_harness}")
     finally:
         dist.destroy_process_group()
     log("done", f"{time.perf_counter() - t_all:.3f} s in all")
@@ -2074,6 +2269,10 @@ def main() -> int:
         entry("digit_histogram", hist_launches, hist_err, h["ms"],
               h["plain_ms"], bound(h["bytes"], 3 * (1 << 28)),
               h["library_ms"]),
+        # one pass at 2**28 u32; launches: the counting paths of phases 8
+        # and 13
+        entry("rank_scatter", rs_launches + rs_harness, rs_err, r["ms"],
+              r["plain_ms"], bound(r["bytes"], r["ops"]), r["library_ms"]),
         # at the rate shape (2**18 rounds), where the loads set the time;
         # its bound is the probe's own: one shared-memory load operation
         # per (round, element) at one conflict-free wavefront a clock per SM

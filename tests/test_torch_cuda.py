@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels on the card (the bitonic sweep, the digit
-histogram and the two probes): against their plain PyTorch versions,
+histogram, the counting engine's rank-and-scatter and the two probes):
+against their plain PyTorch versions,
 through the public entry points (the bitonic and the portable engines, a
 donated sort, the partition front-end, the distributed sort on a one-rank
 NCCL group with both index widths and donated, ``utils.time_fn``), and
@@ -22,6 +23,7 @@ import torch.distributed as dist
 
 import tinyhipradixsort_torch as tthrs
 from tinyhipradixsort_torch.ops import bitonic_engine as tbe
+from tinyhipradixsort_torch.ops import counting_engine as tce
 from tinyhipradixsort_torch.ops import histogram as th
 from tinyhipradixsort_torch.parallel import multihost
 from tinyhipradixsort_torch.tools import gather_floor as tgf
@@ -294,6 +296,74 @@ def test_histogram_kernel_refuses_what_it_does_not_take(cuda):
                            30, 8)
 
 
+def _stage2(bits, shift, width, tile, R, idx_dt):
+    """The counting engine's stage 2 for R rows of whole tiles: the plain
+    histogram's counts, each row's bucket-major scan, the row offsets."""
+    counts = th.digit_histogram_reference(bits, shift, width, tile)
+    Tr, nb = counts.shape[0] // R, counts.shape[1]
+    base = th.exclusive_scan_bucket_major(counts.view(R, Tr, nb).to(idx_dt))
+    row0 = torch.arange(R, dtype=idx_dt, device=bits.device) * (Tr * tile)
+    return (base + row0.view(R, 1, 1)).reshape(R * Tr, nb)
+
+
+@pytest.mark.parametrize("n,wide,shift,width,tile,R,idx_dt,kind", [
+    (4096, False, 0, 8, 1024, 1, torch.int32, "random"),
+    (3 * 4096, False, 24, 8, 2048, 3, torch.int32, "random"),
+    (3 * 6144, False, 29, 3, 3072, 3, torch.int32, "random"),
+    (4096, True, 0, 8, 2048, 1, torch.int64, "random"),
+    (3 * 6144, True, 56, 8, 3072, 3, torch.int64, "random"),
+    (3 * 4096, True, 61, 3, 1024, 3, torch.int32, "random"),
+    (1 << 20, False, 8, 8, 2048, 1, torch.int64, "random"),
+    (8 * 5 << 18, False, 16, 8, 5 << 18, 8, torch.int32, "random"),
+    (1 << 24, False, 0, 8, 2048, 1, torch.int32, "random"),
+    (1 << 22, True, 40, 8, 2048, 1, torch.int32, "random"),
+    (1 << 20, False, 0, 1, 2048, 1, torch.int32, "random"),
+    (1 << 20, False, 0, 8, 2048, 1, torch.int32, "one"),
+    (4 * 3 * 12288, True, 56, 8, 12288, 4, torch.int32, "two"),
+    (1 << 20, False, 24, 8, 2048, 2, torch.int32, "padded")])
+def test_rank_scatter_kernel_matches_plain_version(cuda, n, wide, shift,
+                                                   width, tile, R, idx_dt,
+                                                   kind):
+    rng = np.random.default_rng(n + shift + width)
+    udt = np.uint64 if wide else np.uint32
+    top = np.iinfo(udt).max
+    x = rng.integers(0, top, size=n, dtype=udt, endpoint=True)
+    if kind == "one":
+        x[:] = x[0]
+    elif kind == "two":
+        x = np.where(rng.random(n) < 0.5, x[0], ~x[0])
+    elif kind == "padded":
+        x.reshape(R, -1)[:, -(tile // 2 + 17):] = top
+    bits = torch.from_numpy(x.view(np.int64 if wide else np.int32)).to(cuda)
+    base = _stage2(bits, shift, width, tile, R, idx_dt)
+    before = tce.KERNEL_LAUNCHES
+    got_bits, got_src = tce.rank_scatter(bits, shift, width, base, tile,
+                                         idx_dt)
+    assert tce.KERNEL_LAUNCHES == before + 1 and got_src.is_cuda
+    want_bits, want_src = tce.rank_scatter_reference(bits, shift, width,
+                                                     base, tile, idx_dt)
+    assert got_src.dtype == idx_dt
+    assert torch.equal(got_src, want_src)
+    assert torch.equal(got_bits, want_bits)
+
+
+def test_rank_scatter_kernel_refuses_what_it_does_not_take(cuda):
+    bits = torch.zeros(4096, dtype=torch.int32, device=cuda)
+    before = tce.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="at most 8 bits"):
+        tce.rank_scatter(bits, 0, 9, torch.zeros((2, 512), dtype=torch.int32,
+                                                 device=cuda),
+                         2048, torch.int32)
+    with pytest.raises(ValueError):
+        tce.rank_scatter(bits, 0, 8, torch.zeros((2, 256), dtype=torch.int32),
+                         2048, torch.int32)
+    with pytest.raises(TypeError):
+        tce.rank_scatter(bits.float(), 0, 8,
+                         torch.zeros((2, 256), dtype=torch.int32,
+                                     device=cuda), 2048, torch.int32)
+    assert tce.KERNEL_LAUNCHES == before
+
+
 @pytest.mark.parametrize("method", ["counting", "argsort", "lsd_argsort"])
 def test_portable_engines_on_the_card(cuda, method):
     rng = np.random.default_rng(12)
@@ -301,6 +371,7 @@ def test_portable_engines_on_the_card(cuda, method):
         x = _rand_keys(rng, dtype, 100_003)
         vals = rng.integers(0, 2**32, size=(100_003, 4), dtype=np.uint32)
         before = th.KERNEL_LAUNCHES
+        rs_before = tce.KERNEL_LAUNCHES
         for desc in (False, True):
             order = "descending" if desc else "ascending"
             perm = _oracle_perm(x, desc)
@@ -311,6 +382,7 @@ def test_portable_engines_on_the_card(cuda, method):
             np.testing.assert_array_equal(_bits(k), _bits(x[perm]))
             np.testing.assert_array_equal(v.cpu().numpy(), vals[perm])
         assert (th.KERNEL_LAUNCHES > before) == (method == "counting")
+        assert (tce.KERNEL_LAUNCHES > rs_before) == (method == "counting")
     rows = rng.integers(0, 2**32, size=(64, 3000), dtype=np.uint32)
     got = tthrs.sort_keys(torch.from_numpy(rows).to(cuda), method=method)
     np.testing.assert_array_equal(got.cpu().numpy(), np.sort(rows, axis=1))

@@ -12,11 +12,13 @@ kernel.cu:73-103/136-204/206-429):
    (<- prefixSumExclusiveInplace; the layout ``bucket * numTiles + tile`` is
    the reference's, kernel.cu:97, so a flat exclusive scan gives each
    (bucket, tile) its global base offset);
-3. stable rank within the tile + scatter (<- reorderKey/reorderKeyPair):
-   the rank is a one-hot cumulative sum, taken a chunk of tiles at a time
-   (the JAX package's ``lax.map``) so that the transient stays near 1 GB;
-   the scatter builds the inverse permutation, which is applied as gathers.
-   Stage 3 is plain PyTorch, as it is jnp in the JAX package.
+3. stable rank within the tile + scatter (<- reorderKey/reorderKeyPair),
+   :func:`rank_scatter`: on CUDA tensors the hand-written kernel
+   ``csrc/rank_scatter.cu`` (warp ballots and per-warp counters, as the
+   reference ranks), on CPU tensors :func:`rank_scatter_reference`, the JAX
+   package's one-hot cumulative sum taken a chunk of tiles at a time (its
+   ``lax.map``). Both return the pass's sorted bits and its inverse
+   permutation ``src``, which the other arrays are gathered by.
 
 Padding sorts to the tail: all-ones bits take the top digit in every pass,
 and stability keeps them after every real element. Batched ``(B, n)`` rows
@@ -26,14 +28,23 @@ sorts every row at once (the JAX package vmaps the row sort).
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
-from . import common, histogram
+from . import common, cuda_lib, histogram
 
 DEFAULT_TILE = 2048  # reference RADIX_SORT_BLOCK_SIZE (hpp:19)
-# one-hot rank transient: elements x buckets per chunk of tiles (1 byte of
-# compare and 4 bytes of cumulative sum each: ~1.3 GB)
+# one-hot rank transient of the plain version: elements x buckets per chunk
+# of tiles (1 byte of compare and 4 bytes of cumulative sum each: ~1.3 GB)
 RANK_CHUNK = 1 << 28
+#: widest digit the rank-and-scatter kernel takes (the reference's 8 bits)
+KERNEL_MAX_WIDTH = 8
+
+#: launches of the CUDA rank-and-scatter kernel in this process (counted
+#: only where the kernel is launched)
+KERNEL_LAUNCHES = 0
 
 
 def _index_dtype(n: int) -> torch.dtype:
@@ -69,26 +80,119 @@ def _tile_ranks(digits: torch.Tensor, num_buckets: int) -> torch.Tensor:
     return rank
 
 
-def _pass_inverse_perm(digits, counts, num_buckets: int, idx_dt, mark):
-    """One pass's permutation: digits ``(R, Tr, tile)`` of R rows of Tr
-    tiles and their per-tile counts ``(R, Tr, B)`` -> ``src`` of
-    ``R * Tr * tile`` indices (into the flat rows) with ``out = x[src]``."""
-    R, Tr, tile = digits.shape
+def _check_rank_scatter(bits, shift, width, base, tile, idx_dtype):
+    if bits.dtype not in (torch.int32, torch.int64) or bits.ndim != 1:
+        raise TypeError("rank_scatter takes 1-D int32/int64 key bits, got "
+                        f"{bits.dtype} of shape {tuple(bits.shape)}")
+    if idx_dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"rank_scatter indices are int32 or int64, not "
+                        f"{idx_dtype}")
+    nbits = bits.dtype.itemsize * 8
+    if not (0 <= shift and width >= 1 and shift + width <= nbits):
+        raise ValueError(f"digit window shift={shift} width={width} does not "
+                         f"fit {nbits}-bit bits")
+    n = bits.shape[0]
+    if tile < 1 or n % tile:
+        raise ValueError(f"{n} bits are not whole tiles of {tile}")
+    if base.shape != (n // tile, 1 << width) or base.dtype != idx_dtype:
+        raise ValueError(f"base must be ({n // tile}, {1 << width}) "
+                         f"{idx_dtype}, got {tuple(base.shape)} {base.dtype}")
+
+
+def rank_scatter_reference(bits: torch.Tensor, shift: int, width: int,
+                           base: torch.Tensor, tile: int,
+                           idx_dtype: torch.dtype):
+    """Plain PyTorch version of the kernel: the one-hot rank of
+    :func:`_tile_ranks`, the ``dest`` gather from ``base``, the scatter of
+    an iota into ``src`` and the bits gathered by ``src``."""
+    _check_rank_scatter(bits, shift, width, base, tile, idx_dtype)
+    digits = common.extract_digit(bits, shift, width).view(-1, tile)
+    rank = _tile_ranks(digits, 1 << width)
+    dest = base.gather(1, digits.long()) + rank
+    n = bits.shape[0]
+    src = torch.empty(n, dtype=idx_dtype, device=bits.device)
+    src[dest.view(-1).long()] = torch.arange(n, dtype=idx_dtype,
+                                             device=bits.device)
+    return common.take(bits, src), src
+
+
+@functools.cache
+def _rank_scatter_fn():
+    fn = cuda_lib.load("rank_scatter").thrs_rank_scatter
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_rank_scatter(bits, shift, width, base, tile, idx_dtype):
+    global KERNEL_LAUNCHES
+    _check_rank_scatter(bits, shift, width, base, tile, idx_dtype)
+    if width > KERNEL_MAX_WIDTH:
+        raise ValueError(f"the rank-and-scatter kernel takes digits of at "
+                         f"most {KERNEL_MAX_WIDTH} bits, got {width}")
+    if base.device != bits.device:
+        raise ValueError(f"base is on {base.device}, bits on {bits.device}")
+    bits = bits.contiguous()
+    base = base.contiguous()
+    n = bits.shape[0]
+    bits_out = torch.empty_like(bits)
+    src = torch.empty(n, dtype=idx_dtype, device=bits.device)
+    if n == 0:
+        return bits_out, src
+    fn = _rank_scatter_fn()
+    with torch.cuda.device(bits.device):
+        stream = torch.cuda.current_stream(bits.device).cuda_stream
+        rc = fn(bits.data_ptr(), bits.dtype.itemsize, n, shift, width, tile,
+                base.data_ptr(), src.dtype.itemsize, bits_out.data_ptr(),
+                src.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"rank-and-scatter kernel launch failed: CUDA "
+                           f"error {rc} (n={n} shift={shift} width={width} "
+                           f"tile={tile})")
+    KERNEL_LAUNCHES += 1
+    return bits_out, src
+
+
+def rank_scatter(bits: torch.Tensor, shift: int, width: int,
+                 base: torch.Tensor, tile: int, idx_dtype: torch.dtype):
+    """Stage 3 of one pass: ``(bits_out, src)`` with ``bits_out =
+    bits[src]``, where element ``i`` of tile ``t`` with digit ``d`` goes to
+    ``base[t, d]`` plus its stable rank among the equal digits before it in
+    its tile.
+
+    bits: the flat padded key bits of the pass (int32/int64 holding the
+    unsigned pattern), whole tiles of ``tile``; base: ``(num_tiles,
+    2**width)`` in ``idx_dtype`` (int32 or int64), stage 2's offsets.
+    ``src`` is the inverse permutation in ``idx_dtype``: ``out = x[src]``.
+
+    CUDA tensors go through the kernel (built at first use; digits of at
+    most :data:`KERNEL_MAX_WIDTH` bits), CPU tensors through
+    :func:`rank_scatter_reference`; any other device raises.
+    """
+    if common.on_cuda(bits):
+        return _launch_rank_scatter(bits, shift, width, base, tile, idx_dtype)
+    if bits.device.type != "cpu":
+        raise ValueError(f"no rank_scatter implementation for {bits.device}")
+    return rank_scatter_reference(bits, shift, width, base, tile, idx_dtype)
+
+
+def _pass_inverse_perm(bits, shift: int, width: int, counts, tile: int,
+                       idx_dt, mark):
+    """One pass of R rows of Tr tiles: ``bits`` flat, its per-tile counts
+    ``(R, Tr, 2**width)`` -> ``(bits_out, src)`` of :func:`rank_scatter`,
+    ``src`` indexing the flat rows with ``out = x[src]``."""
+    R, Tr, num_buckets = counts.shape
     # stage 2: each row's bucket-major exclusive scan, offset to its range
     base = histogram.exclusive_scan_bucket_major(counts.to(idx_dt))
-    row0 = torch.arange(R, dtype=idx_dt, device=digits.device) * (Tr * tile)
+    row0 = torch.arange(R, dtype=idx_dt, device=bits.device) * (Tr * tile)
     base = (base + row0.view(R, 1, 1)).reshape(R * Tr, num_buckets)
     mark("scan")
-    flat_digits = digits.view(R * Tr, tile)
-    rank = _tile_ranks(flat_digits, num_buckets)
-    mark("rank")
-    dest = base.gather(1, flat_digits.long()) + rank
-    n = R * Tr * tile
-    src = torch.empty(n, dtype=idx_dt, device=digits.device)
-    src[dest.view(-1).long()] = torch.arange(n, dtype=idx_dt,
-                                             device=digits.device)
-    mark("scatter")
-    return src
+    out = rank_scatter(bits, shift, width, base, tile, idx_dt)
+    mark("rank_scatter")
+    return out
 
 
 def sort_arrays_counting(bits, arrays, start_bit: int, end_bit: int,
@@ -100,7 +204,7 @@ def sort_arrays_counting(bits, arrays, start_bit: int, end_bit: int,
     ``tile`` must be a histogram tile (:func:`histogram.round_tile` leaves it
     as it is). ``mark(stage)``, when given, is called after the padding
     (``"pad"``) and after each stage of each pass (``"histogram"``,
-    ``"scan"``, ``"rank"``, ``"scatter"`` and ``"gathers"``), for timing.
+    ``"scan"``, ``"rank_scatter"`` and ``"gathers"``), for timing.
     """
     if tile != histogram.round_tile(tile):
         raise ValueError(f"tile {tile} is not a histogram tile (a multiple "
@@ -126,11 +230,9 @@ def sort_arrays_counting(bits, arrays, start_bit: int, end_bit: int,
             # stage 1: per-tile counts (each row is whole tiles: no tail pad)
             counts = histogram.digit_histogram(bits_p, shift, width, tile)
             mark("histogram")
-            digits = common.extract_digit(bits_p, shift, width)
-            src = _pass_inverse_perm(digits.view(R, Tr, tile),
-                                     counts.view(R, Tr, 1 << width),
-                                     1 << width, idx_dt, mark)
-            bits_p = common.take(bits_p, src)
+            bits_p, src = _pass_inverse_perm(
+                bits_p, shift, width, counts.view(R, Tr, 1 << width), tile,
+                idx_dt, mark)
             arrays_p = [common.take(a, src) for a in arrays_p]
             mark("gathers")
         out = [a.view(R, npad, *a.shape[1:])[:, :n].contiguous()

@@ -1,9 +1,10 @@
 """Per-element dynamic-load floor on Hopper (port of the JAX package's
 ``tools/gather_floor.py``).
 
-The counting engine's stage 3 applies each pass's permutation as a gather,
-``out = x[src]``, one data-dependent load per element. This probe measures
-two floors of that:
+The counting engine's stage 3 kernel moves each pass's key bits itself; the
+other arrays (the keys, any payload) follow the pass's permutation as a
+gather, ``out = x[src]``, one data-dependent load per element. This probe
+measures two floors of that:
 
 * the rate of dynamic loads from an on-chip table: the checksum
   ``sum_o sum_i src[(idx[i] + o) & (m - 1)] mod 2**32`` over ``rounds``
@@ -14,7 +15,7 @@ two floors of that:
   :func:`gather_checksum_reference` and its bound, the loads at one
   wavefront (32 loads) a clock per SM;
 * the rate of the device-memory gather ``src[perm]`` of n 32-bit words by a
-  random permutation (the stage-3 gather itself, a PyTorch index op).
+  random permutation (the engine's gather itself, a PyTorch index op).
 
 Two shapes matter: the default (m = 4096, 2048 rounds, 8.4M loads), where
 one launch takes longer than the loads, and the rate shape (2**18 rounds,
