@@ -16,7 +16,8 @@ Phases, one output line each (time, kernel launches, result):
    the sweep's register body, each type of a template), ptxas registers
    and spill bytes (kept beside a reused library); the main path's 1-, 3-
    and 5-word instantiations and the four rank-and-scatter ones (u32/u64
-   bits, int32/int64 src) are required to spill nothing;
+   bits, int32/int64 src; each carries every payload row size) are
+   required to spill nothing;
 3. kernel vs plain: sweeps of 1, 2, 3, 4, 5, 8 and 12 words (local, cross,
    forced ascending) on 2**20 random words, the cross sweeps over the top
    index bits of the 2**28 and 2**31 one-word and 2**24 three-word
@@ -55,9 +56,13 @@ Phases, one output line each (time, kernel launches, result):
    0/8/16/24, tiles 8192 and 2048, widths 1, 2, 5 and 12, an odd tile, an n
    that is no tile multiple, u64 with shift 40), required bit-equal; then
    ``rank_scatter`` through the kernel and through
-   ``rank_scatter_reference`` (2**28 u32 at width 8 and tile 2048, the main
-   path's pass; a u64 pass at shift 56; a 3-bit last digit; 3 rows; int64
-   src; a multi-chunk tile; skewed digits), src and bits both bit-equal;
+   ``rank_scatter_reference`` (2**28 u32 at width 8 and tile 2048: the
+   sort_keys pass with the keys carried, the sort_pairs pass with two
+   payloads, bits + src; payload rows of 1, 2, 4, 8 and 16 bytes, four at
+   once; src written or not; a u64 pass with a u64 payload; 3- and 1-bit
+   digits; rows whose last chunk holds fewer tiles; padded row tails;
+   int64 src; a multi-chunk tile; an odd tile; skewed digits), the bits,
+   src and every payload bit-equal;
 8. portable path: the public entry points with method="counting" (u32 at
    160,000,000, pairs, f32 and f16/bf16 specials, u64 pairs, a window,
    descending f64, 2-D rows 4096x4096), "argsort" and "lsd_argsort"
@@ -71,11 +76,19 @@ Phases, one output line each (time, kernel launches, result):
    its bound and its share of it;
 10. timing of the new kernels and engine: the histogram at 2**28 beside its
    plain version, torch.bincount and its bound; the rank-and-scatter kernel
-   on one pass at 2**28 u32 (width 8, tile 2048) and at 2**28 u64 beside
-   its plain version, torch.sort of the uint8 digits and its bound;
-   counting sort_keys u32 at 2**28 (checked against torch.sort, required
-   to launch both kernels) beside torch.sort and the bitonic sort_keys,
-   with its per-stage breakdown;
+   on one pass at 2**28 (width 8, tile 2048) for each set of output
+   streams (``STREAM_ROWS``: bits; + src; + a u32 payload, the sort_keys
+   pass; + src + a u32 payload; + a 16-byte payload; u64 bits + a u64
+   payload; u64 bits + src; bits and bits + src on digits that fill whole
+   aligned lines), each with its bytes, its bound and its share
+   of it, three of them beside the plain version and torch.sort of the
+   uint8 digits; counting sort_keys u32 and sort_pairs u32+u32 at 2**28
+   (checked against torch.sort, required to launch both kernels and to
+   gather nothing: ``counting_engine.GATHERED``) beside torch.sort and the
+   bitonic sort_keys, each with its per-stage breakdown. ``counting_only``
+   runs phases 2 (the counting kernels), 7 and 10 alone, and, given
+   another rank_scatter.cu with the bits-and-src C interface of the
+   kernel before payloads, the A/B against it (``rank_scatter_ab``);
 11. the distributed sort on a one-rank NCCL group (NCCL allows one rank per
    card): psort_keys ascending, descending and with the two-word index
    (_force_wide), psort_pairs with a u32 payload, psort_indices with both
@@ -124,6 +137,7 @@ phases 5 and 6 alone (see there).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -131,6 +145,7 @@ import re
 import resource
 import socket
 import statistics
+import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -1075,12 +1090,12 @@ NO_SPILL = ("sweep_registers<1>", "sweep_registers<3>", "sweep_registers<5>",
             "rank_scatter_kernel<u64,i32>", "rank_scatter_kernel<u64,i64>")
 
 
-def phase_build() -> None:
+def phase_build(libs=tuple(KERNELS)) -> None:
     t0 = time.perf_counter()
-    cuda_lib.build(list(KERNELS))
+    cuda_lib.build(list(libs))
     wall = time.perf_counter() - t0
     spills = {}
-    for lib in KERNELS:
+    for lib in libs:
         cuda_lib.load(lib)
         info = cuda_lib.BUILD_INFO[lib]
         log("2 build", f"{lib}: nvcc {info['seconds']:.3f} s -> "
@@ -1088,8 +1103,10 @@ def phase_build() -> None:
         for name, regs, spill in ptxas_report(info["log"]):
             log("2 build", f"{lib}: {name}: {regs}; {spill}")
             spills[name] = spill
-    log("2 build", f"{len(KERNELS)} libraries in {wall:.3f} s (parallel)")
+    log("2 build", f"{len(libs)} libraries in {wall:.3f} s (parallel)")
     for name in NO_SPILL:
+        if name.split("<")[0] not in {n.split("<")[0] for n in spills}:
+            continue  # a library this call did not build
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       spills.get(name, ""))
         if m is None:
@@ -1161,65 +1178,105 @@ def _stage2(bits: torch.Tensor, shift: int, width: int, tile: int, rows: int,
             idx_dt: torch.dtype) -> torch.Tensor:
     """The counting engine's stage 2 for ``rows`` rows of whole tiles: the
     plain histogram's counts, each row's bucket-major exclusive scan, the
-    rows' offsets; ``(num_tiles, 2**width)`` in ``idx_dt``."""
+    rows' offsets; ``(rows, tiles per row, 2**width)`` in ``idx_dt``."""
     counts = hist.digit_histogram_reference(bits, shift, width, tile)
     Tr, nb = counts.shape[0] // rows, counts.shape[1]
     base = hist.exclusive_scan_bucket_major(
         counts.view(rows, Tr, nb).to(idx_dt))
     row0 = torch.arange(rows, dtype=idx_dt, device=bits.device) * (Tr * tile)
-    return (base + row0.view(rows, 1, 1)).reshape(rows * Tr, nb)
+    return base + row0.view(rows, 1, 1)
+
+
+def _payloads(n: int, row_bytes, gen: torch.Generator) -> list:
+    """Random payloads of n rows on the card, one per entry of row_bytes
+    (1: uint8, 2: int16, 4: int32, 8: int64, 16: an (n, 4) int32 leaf)."""
+    out = []
+    for rb in row_bytes:
+        shape = (n, 4) if rb == 16 else (n,)
+        dt = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64,
+              16: torch.int32}[rb]
+        lo, hi = (0, 256) if rb == 1 else (-2**15, 2**15) if rb == 2 else \
+            (-2**31, 2**31)
+        t = torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                          dtype=torch.int64)
+        if rb == 8:
+            t = (t << 32) ^ torch.randint(0, 2**32, shape, generator=gen,
+                                          device="cuda", dtype=torch.int64)
+        out.append(t.to(dt))
+    return out
 
 
 def rank_scatter_cases():
-    """(n, wide, shift, width, tile, rows, idx_dt, kind)."""
+    """(n, wide, shift, width, tile, rows, idx_dt, kind, payload row
+    bytes, want_src)."""
     i32, i64 = torch.int32, torch.int64
-    return [(1 << 28, False, 0, 8, 2048, 1, i32, "random"),  # the main pass
-            (1 << 26, True, 56, 8, 2048, 1, i32, "random"),  # u64 bits
-            (1 << 24, False, 29, 3, 2048, 1, i32, "random"),  # 3-bit digit
-            (3 << 22, False, 8, 8, 2048, 3, i32, "random"),   # 3 rows
-            (1 << 24, False, 16, 8, 2048, 1, i64, "random"),  # int64 src
-            (1 << 24, True, 0, 8, 1 << 20, 4, i64, "random"),  # 512 chunks
-            (3072 << 12, False, 24, 8, 3072, 1, i32, "random"),  # odd tile
-            (1 << 22, False, 0, 8, 2048, 1, i32, "one"),
-            (1 << 22, False, 0, 8, 2048, 1, i32, "two")]
+    return [
+        # the main path's passes: sort_keys (the keys as one 4-byte
+        # payload, no src) and sort_pairs u32+u32 (two payloads)
+        (1 << 28, False, 0, 8, 2048, 1, i32, "random", (4,), False),
+        (1 << 28, False, 24, 8, 2048, 1, i32, "random", (4, 4), False),
+        (1 << 28, False, 0, 8, 2048, 1, i32, "random", (), True),  # src
+        (1 << 24, False, 8, 8, 2048, 1, i32, "random", (1, 2, 4, 8), True),
+        (1 << 24, False, 16, 8, 2048, 1, i64, "random", (16, 4, 16, 1), True),
+        (1 << 26, True, 56, 8, 2048, 1, i32, "random", (8,), False),  # u64
+        (1 << 24, False, 29, 3, 2048, 1, i32, "random", (4,), True),  # 3 bits
+        (1 << 20, False, 0, 1, 2048, 1, i32, "random", (2,), False),  # 1 bit
+        # rows of 1030 tiles: their last chunk holds 2 tiles, not 4
+        (3 * 1030 * 2048, False, 8, 8, 2048, 3, i32, "random", (4, 16), False),
+        (5 * 9 * 1024, False, 0, 8, 1024, 5, i32, "padded", (4,), True),
+        (3 * 6 * 1024, True, 8, 8, 1024, 3, i64, "random", (16, 8), True),
+        (1 << 24, True, 0, 8, 1 << 20, 4, i64, "random", (16,), True),
+        (3072 << 12, False, 24, 8, 3072, 1, i32, "random", (2,), True),
+        (1 << 22, False, 0, 8, 2048, 1, i32, "one", (4,), False),
+        (1 << 22, False, 0, 8, 2048, 1, i32, "two", (8,), True)]
 
 
 def phase_rank_scatter() -> int:
-    """The rank-and-scatter kernel against its plain version: both outputs
-    bit-equal. Returns the largest absolute difference (0)."""
+    """The rank-and-scatter kernel against its plain version: the bits,
+    ``src`` and every payload bit-equal. Returns the largest absolute
+    difference (0)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 77)
     worst = 0
-    for n, wide, shift, width, tile, rows, idx_dt, kind in \
-            rank_scatter_cases():
+    for (n, wide, shift, width, tile, rows, idx_dt, kind, row_bytes,
+         want_src) in rank_scatter_cases():
         bits = _random_bits(n, wide, gen)
         if kind == "one":
             bits[:] = bits[0].item()
         elif kind == "two":
             bits = torch.where(bits < 0, bits[0], ~bits[0])
+        elif kind == "padded":  # each row's tail all ones, as the engine pads
+            bits.view(rows, -1)[:, -(tile // 2 + 17):] = -1
+        payloads = _payloads(n, row_bytes, gen)
         base = _stage2(bits, shift, width, tile, rows, idx_dt)
         before = counting_engine.KERNEL_LAUNCHES
-        got_bits, got_src = counting_engine.rank_scatter(
-            bits, shift, width, base, tile, idx_dt)
+        got = counting_engine.rank_scatter(bits, shift, width, base, tile,
+                                           idx_dt, payloads, want_src)
         if counting_engine.KERNEL_LAUNCHES != before + 1:
             raise AssertionError("rank_scatter did not launch its kernel")
-        want_bits, want_src = counting_engine.rank_scatter_reference(
-            bits, shift, width, base, tile, idx_dt)
+        want = counting_engine.rank_scatter_reference(
+            bits, shift, width, base, tile, idx_dt, payloads, want_src)
         torch.cuda.synchronize()
-        err = max(int((got_src.long() - want_src.long()).abs().max()),
-                  int((got_bits.long() - want_bits.long()).abs().max()))
-        ok = (got_src.dtype == idx_dt and torch.equal(got_src, want_src)
-              and torch.equal(got_bits, want_bits))
+        pairs = [(got[0], want[0])] + list(zip(got[2], want[2]))
+        if want_src:
+            pairs.append((got[1], want[1]))
+        err = max(int((a.long() - b.long()).abs().max()) for a, b in pairs)
+        ok = ((got[1] is None) != want_src
+              and all(a.dtype == b.dtype and torch.equal(a, b)
+                      for a, b in pairs))
         log("7 rank-scatter-vs-plain",
             f"{'u64' if wide else 'u32'} n={n} shift={shift} width={width} "
-            f"tile={tile} rows={rows} src {str(idx_dt)[6:]} {kind}: "
-            f"max_abs_err={err} {'bit-equal' if ok else 'MISMATCH'}")
+            f"tile={tile} rows={rows} src "
+            f"{str(idx_dt)[6:] if want_src else 'not written'} payload rows "
+            f"{list(row_bytes)} B {kind}: max_abs_err={err} "
+            f"{'bit-equal' if ok else 'MISMATCH'}")
         if not ok:
             raise AssertionError(f"rank_scatter kernel != plain version "
                                  f"(n={n} shift={shift} width={width} "
-                                 f"tile={tile} rows={rows} {kind})")
+                                 f"tile={tile} rows={rows} {kind} payloads "
+                                 f"{row_bytes} want_src={want_src})")
         worst = max(worst, err)
-        del bits, base, got_bits, got_src, want_bits, want_src
+        del bits, base, got, want, pairs, payloads
         torch.cuda.empty_cache()
     return worst
 
@@ -1359,14 +1416,19 @@ def phase_portable() -> tuple[int, int]:
     for label, method, run in portable_cases():
         before = hist.KERNEL_LAUNCHES
         rs_before = counting_engine.KERNEL_LAUNCHES
+        gathered = counting_engine.GATHERED
         secs, check = run(rng)
         launches = hist.KERNEL_LAUNCHES - before
         rs_launches = counting_engine.KERNEL_LAUNCHES - rs_before
+        gathered = counting_engine.GATHERED - gathered
         ok = check()
         log("8 portable-path", f"method={method} {label}: {secs * 1e3:.3f} ms "
             f"(host clock, synchronized) histogram launches={launches} "
-            f"rank_scatter launches={rs_launches} "
+            f"rank_scatter launches={rs_launches} gathered={gathered} "
             f"{'bit-exact' if ok else 'MISMATCH'} vs numpy oracle")
+        if method == "counting" and gathered:
+            raise AssertionError(f"the counting engine gathered {gathered} "
+                                 f"arrays it should carry: {label}")
         torch.cuda.empty_cache()
         if not ok:
             raise AssertionError(f"portable path output wrong: {method} {label}")
@@ -1457,80 +1519,98 @@ def rank_scatter_ops(width: int) -> int:
     return 2 * width + 14
 
 
+#: phase 10's stream table at 2**28 words, width 8, tile 2048: (label,
+#: keys, payload row bytes, want_src). Keys "u32" and "u64" are random;
+#: "runs" are u32 whose digits each fill a whole aligned 128-byte line of
+#: every output stream a chunk (digit (97 i) mod 256: each digit 32 times in
+#: every 8192 words), so no write is a partial sector. The third row is the
+#: sort_keys pass (the keys carried, no src), the second the outputs of the
+#: kernel before payloads.
+STREAM_ROWS = [("bits", "u32", (), False),
+               ("bits + src", "u32", (), True),
+               ("bits + 1 u32 payload", "u32", (4,), False),
+               ("bits + src + 1 u32 payload", "u32", (4,), True),
+               ("bits + 1 16-byte payload", "u32", (16,), False),
+               ("u64 bits + 1 u64 payload", "u64", (8,), False),
+               ("u64 bits + src", "u64", (), True),
+               ("bits, whole-line runs", "runs", (), False),
+               ("bits + src, whole-line runs", "runs", (), True)]
+
+
+def rank_scatter_bytes(n: int, word_bytes: int, row_bytes, want_src: bool,
+                       base_numel: int, idx_bytes: int = 4) -> int:
+    """Bytes one call must move: the bits and each payload row read and
+    written once, base read once, src written once if it is."""
+    return (2 * n * (word_bytes + sum(row_bytes)) + idx_bytes * base_numel
+            + (idx_bytes * n if want_src else 0))
+
+
 def phase_rank_scatter_timing(x: torch.Tensor, card: str) -> dict:
     """One pass of the rank-and-scatter kernel at the main path's shape
-    (2**28 u32, shift 0, width 8, tile 2048), and on 2**28 u64 bits, beside
-    its plain version, torch.sort of the digits as uint8 (whose indices are
-    ``src`` for one row) and its bound."""
+    (2**28 words, shift 0, width 8, tile 2048) for each set of output
+    streams of STREAM_ROWS, with its bytes, its bound and its share of it;
+    the sort_keys pass, bits + src and u64 bits + src also beside the plain
+    version and torch.sort of the digits as uint8 (whose indices are src
+    for one row). Returns the sort_keys pass's numbers for the report."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 10)
-    tile, width, result = counting_engine.DEFAULT_TILE, 8, None
-    for bits in (x.view(torch.int32), None):
-        wide = bits is None
-        if wide:
-            bits = _random_bits(x.shape[0], True, gen)
-        n = bits.shape[0]
+    tile, width, n = counting_engine.DEFAULT_TILE, 8, x.shape[0]
+    words = {"u32": x.view(torch.int32)}
+    result = None
+    for label, keys, row_bytes, want_src in STREAM_ROWS:
+        if keys not in words:
+            words.clear()
+            torch.cuda.empty_cache()
+            words[keys] = (_random_bits(n, True, gen) if keys == "u64" else
+                           ((torch.arange(n, device="cuda") * 97) & 255)
+                           .to(torch.int32))
+        bits = words[keys]
         base = _stage2(bits, 0, width, tile, 1, torch.int32)
-        ms = cuda_ms(lambda: counting_engine.rank_scatter(
-            bits, 0, width, base, tile, torch.int32), 5)
-        plain_ms = cuda_ms(lambda: counting_engine.rank_scatter_reference(
-            bits, 0, width, base, tile, torch.int32), 5)
-        digits = (bits & 0xFF).to(torch.uint8)
-        library_ms = cuda_ms(lambda: torch.sort(digits, stable=True), 5)
-        _, src = counting_engine.rank_scatter(bits, 0, width, base, tile,
-                                              torch.int32)
-        if not torch.equal(torch.sort(digits, stable=True).indices,
-                           src.long()):
-            raise AssertionError("rank_scatter src != torch.sort's indices")
-        del digits, src
-        moved = 2 * n * bits.dtype.itemsize + 4 * n + 4 * base.numel()
+        payloads = _payloads(n, row_bytes, gen)
+        args = (bits, 0, width, base, tile, torch.int32, payloads, want_src)
+        ms = cuda_ms(lambda: counting_engine.rank_scatter(*args), 5)
+        moved = rank_scatter_bytes(n, bits.dtype.itemsize, row_bytes,
+                                   want_src, base.numel())
         ops = rank_scatter_ops(width) * n
-        bound_ms = max(moved / H100_BYTES_PER_S, ops / H100_INT_OPS_PER_S) * 1e3
-        log("10 timing", f"rank_scatter {'u64' if wide else 'u32'} n=2**28 "
-            f"width=8 tile={tile} int32 src, one pass: kernel {ms:.6f} ms "
-            f"({moved / ms / 1e9:.4f} TB/s), plain version {plain_ms:.6f} ms, "
-            f"torch.sort(uint8 digits, stable=True) {library_ms:.6f} ms "
-            f"(its indices equal src), bound {bound_ms:.6f} ms ({moved} bytes "
-            f"at 3.35 TB/s; {ops} integer operations take "
-            f"{ops / H100_INT_OPS_PER_S * 1e3:.6f} ms; kernel at "
-            f"{100 * bound_ms / ms:.1f}% of it); median of 5, CUDA events; "
-            f"card: {card}")
-        if result is None:
-            result = {"ms": ms, "plain_ms": plain_ms, "bytes": moved,
-                      "ops": ops, "library_ms": library_ms}
-        del base
-    del bits
+        bound_ms = max(moved / H100_BYTES_PER_S,
+                       ops / H100_INT_OPS_PER_S) * 1e3
+        extra = ""
+        row = {"ms": ms, "bytes": moved, "ops": ops, "bound_ms": bound_ms}
+        if label in ("bits + src", "bits + 1 u32 payload", "u64 bits + src"):
+            row["plain_ms"] = cuda_ms(
+                lambda: counting_engine.rank_scatter_reference(*args), 3)
+            digits = (bits & 0xFF).to(torch.uint8)
+            row["library_ms"] = cuda_ms(
+                lambda: torch.sort(digits, stable=True), 5)
+            if want_src:
+                _, src, _ = counting_engine.rank_scatter(*args)
+                if not torch.equal(torch.sort(digits, stable=True).indices,
+                                   src.long()):
+                    raise AssertionError("rank_scatter src != torch.sort's "
+                                         "indices")
+                del src
+            del digits
+            extra = (f"; plain version {row['plain_ms']:.6f} ms (median of "
+                     f"3), torch.sort(uint8 digits, stable=True) "
+                     f"{row['library_ms']:.6f} ms")
+        log("10 streams", f"rank_scatter {label} n=2**28 width=8 tile={tile}: "
+            f"kernel {ms:.6f} ms ({moved / ms / 1e9:.4f} TB/s); {moved} "
+            f"bytes, bound {bound_ms:.6f} ms (3.35 TB/s; {ops} integer "
+            f"operations take {ops / H100_INT_OPS_PER_S * 1e3:.6f} ms), "
+            f"kernel at "
+            f"{100 * bound_ms / ms:.1f}% of it{extra}; median of 5, CUDA "
+            f"events; card: {card}")
+        if label == "bits + 1 u32 payload":
+            result = row
+        del base, payloads, args
+    words.clear()
     torch.cuda.empty_cache()
     return result
 
 
-def phase_counting_timing(x: torch.Tensor, bitonic_ms: float,
-                          card: str) -> None:
-    n = x.shape[0]
-    before = (hist.KERNEL_LAUNCHES, counting_engine.KERNEL_LAUNCHES)
-    got = thrs.sort_keys(x, method="counting")
-    signed = x.view(torch.int32) ^ -2**31
-    want = (torch.sort(signed).values ^ -2**31).view(torch.uint32)
-    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-        raise AssertionError("counting sort_keys u32 n=2**28 != torch.sort")
-    if (hist.KERNEL_LAUNCHES == before[0]
-            or counting_engine.KERNEL_LAUNCHES == before[1]):
-        raise AssertionError("counting sort_keys did not launch the histogram "
-                             "and rank_scatter kernels")
-    del got, want
-    log("10 timing", f"counting sort_keys u32 n=2**28: bit-exact against "
-        f"torch.sort; histogram launches="
-        f"{hist.KERNEL_LAUNCHES - before[0]} rank_scatter launches="
-        f"{counting_engine.KERNEL_LAUNCHES - before[1]}")
-    ms = cuda_ms(lambda: thrs.sort_keys(x, method="counting"), 5)
-    yard_ms = cuda_ms(lambda: torch.sort(signed, stable=True), 5)
-    del signed
-    log("10 timing", f"counting sort_keys u32 n=2**28: {ms:.3f} ms "
-        f"({n / ms / 1e6:.4f} Gkeys/s); torch.sort(stable=True) {yard_ms:.3f} "
-        f"ms; bitonic sort_keys (phase 5) {bitonic_ms:.3f} ms; median of 5, "
-        f"CUDA events; card: {card}")
-    # per-stage device time of the same sort: the engine marks each stage
-    bits = keybits.key_bits(x)
+def _stage_breakdown(run, card: str, what: str) -> None:
+    """Per-stage device time of ``run(mark)``, which calls the counting
+    engine with the mark hook: median of 3 after a warm-up."""
     passes = []
     for rep in range(4):
         events = []
@@ -1541,7 +1621,7 @@ def phase_counting_timing(x: torch.Tensor, bitonic_ms: float,
             events.append((stage, ev))
 
         mark("start")
-        counting_engine.sort_arrays_counting(bits, [x], 0, 32, mark=mark)
+        run(mark)
         torch.cuda.synchronize()
         if rep:
             stages = {}
@@ -1552,12 +1632,163 @@ def phase_counting_timing(x: torch.Tensor, bitonic_ms: float,
     for stage in passes[0]:
         med = statistics.median(p[stage] for p in passes)
         total += med
-        log("10 timing", f"counting breakdown {stage}: {med:.3f} ms "
-            f"(4 passes)" if stage != "pad" else
-            f"counting breakdown pad: {med:.3f} ms")
-    log("10 timing", f"counting breakdown sum {total:.3f} ms "
-        f"({100 * total / ms:.1f}% of the sort_keys median); median of 3 "
-        f"after a warm-up, CUDA events between stages; card: {card}")
+        log("10 timing", f"counting {what} breakdown {stage}: {med:.3f} ms"
+            + (" (4 passes)" if stage != "pad" else ""))
+    log("10 timing", f"counting {what} breakdown sum {total:.3f} ms; median "
+        f"of 3 after a warm-up, CUDA events between stages; card: {card}")
+
+
+def phase_counting_timing(x: torch.Tensor, bitonic_ms, card: str) -> None:
+    """Counting sort_keys u32 and sort_pairs u32+u32 at 2**28: bit-exact
+    against torch.sort, both kernels launched, nothing gathered (the
+    kernel carries the keys and the values); timed, and broken down by
+    stage."""
+    n = x.shape[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 13)
+    vals = torch.randint(-2**31, 2**31, (n,), generator=gen, device="cuda",
+                         dtype=torch.int64).to(torch.int32).view(torch.uint32)
+    signed = x.view(torch.int32) ^ -2**31
+    srt = torch.sort(signed, stable=True)
+    for what, call in [
+            ("sort_keys u32", lambda: thrs.sort_keys(x, method="counting")),
+            ("sort_pairs u32+u32", lambda: thrs.sort_pairs(
+                x, vals, method="counting"))]:
+        before = (hist.KERNEL_LAUNCHES, counting_engine.KERNEL_LAUNCHES,
+                  counting_engine.GATHERED)
+        got = call()
+        keys, v = got if isinstance(got, tuple) else (got, None)
+        ok = torch.equal(keys.view(torch.int32), srt.values ^ -2**31)
+        if v is not None:
+            ok = ok and torch.equal(v.view(torch.int32),
+                                    vals.view(torch.int32)[srt.indices])
+        gathered = counting_engine.GATHERED - before[2]
+        log("10 timing", f"counting {what} n=2**28: "
+            f"{'bit-exact' if ok else 'MISMATCH'} against torch.sort; "
+            f"histogram launches={hist.KERNEL_LAUNCHES - before[0]} "
+            f"rank_scatter launches="
+            f"{counting_engine.KERNEL_LAUNCHES - before[1]} "
+            f"gathered={gathered}")
+        if not ok:
+            raise AssertionError(f"counting {what} n=2**28 != torch.sort")
+        if (hist.KERNEL_LAUNCHES == before[0]
+                or counting_engine.KERNEL_LAUNCHES == before[1]):
+            raise AssertionError(f"counting {what} did not launch the "
+                                 f"histogram and rank_scatter kernels")
+        if gathered:
+            raise AssertionError(f"counting {what} gathered {gathered} "
+                                 f"arrays")
+        del got, keys, v
+        ms = cuda_ms(call, 5)
+        log("10 timing", f"counting {what} n=2**28: {ms:.3f} ms "
+            f"({n / ms / 1e6:.4f} Gkeys/s); median of 5, CUDA events; card: "
+            f"{card}")
+    del srt
+    yard_ms = cuda_ms(lambda: torch.sort(signed, stable=True), 5)
+    del signed
+    log("10 timing", f"torch.sort(stable=True) u32 n=2**28 {yard_ms:.3f} ms; "
+        f"bitonic sort_keys (phase 5) "
+        f"{'not run' if bitonic_ms is None else f'{bitonic_ms:.3f} ms'}; "
+        f"card: {card}")
+    bits = keybits.key_bits(x)
+    _stage_breakdown(lambda mark: counting_engine.sort_arrays_counting(
+        bits, [x], 0, 32, mark=mark), card, "sort_keys u32")
+    _stage_breakdown(lambda mark: counting_engine.sort_arrays_counting(
+        bits, [x, vals], 0, 32, mark=mark), card, "sort_pairs u32+u32")
+    del bits, vals
+    torch.cuda.empty_cache()
+
+
+def counting_only(parent_src=None) -> None:
+    """Phases 1, 2 (the counting kernels only), 7 (rank-and-scatter) and
+    10 alone, and the A/B against another rank_scatter.cu (bits and src
+    only, the C interface of the kernel before payloads) when
+    ``parent_src`` names one:
+    ``python3 -c "import chip_smoke as c; c.counting_only('old.cu')"``."""
+    card = card_line()
+    print(card, flush=True)
+    phase_build(["digit_histogram", "rank_scatter"])
+    t0 = time.perf_counter()
+    err = phase_rank_scatter()
+    log("7 rank-scatter-vs-plain", f"all cases bit-equal in "
+        f"{time.perf_counter() - t0:.3f} s, max_abs_err={err}")
+    x = bench_keys()
+    phase_rank_scatter_timing(x, card)
+    phase_counting_timing(x, None, card)
+    if parent_src:
+        rank_scatter_ab(x, parent_src, card)
+
+
+def _parent_rank_scatter(path: str):
+    """Build another rank_scatter.cu (the C interface before payloads:
+    bits, word_bytes, n, shift, width, tile, base, idx_bytes, bits_out,
+    src, stream) into the ignored build directory; its function."""
+    out = cuda_lib.BUILD_DIR / "ab" / "librank_scatter_parent.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(out),
+                    path], check=True, capture_output=True, text=True)
+    fn = ctypes.CDLL(str(out)).thrs_rank_scatter
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rank_scatter_ab(x: torch.Tensor, parent_src: str, card: str) -> None:
+    """This tree's rank-and-scatter kernel against another source's (the
+    parent commit's, with the C interface before payloads), in one
+    process, in turns
+    (parent, change, change, parent), at 2**28 width 8 tile 2048: bits +
+    src (u32 and u64), and the sort_keys pass, which the parent does as
+    bits + src and a gather of the keys by src."""
+    parent = _parent_rank_scatter(parent_src)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 12)
+    tile, n = counting_engine.DEFAULT_TILE, x.shape[0]
+    for wide in (False, True):
+        bits = _random_bits(n, True, gen) if wide else x.view(torch.int32)
+        base = _stage2(bits, 0, 8, tile, 1, torch.int32).contiguous()
+        out = torch.empty_like(bits)
+        src = torch.empty(n, dtype=torch.int32, device="cuda")
+
+        def old():
+            rc = parent(bits.data_ptr(), bits.dtype.itemsize, n, 0, 8, tile,
+                        base.data_ptr(), 4, out.data_ptr(), src.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"parent kernel failed: {rc}")
+            return out, src
+
+        def new():
+            return counting_engine.rank_scatter(bits, 0, 8, base, tile,
+                                                torch.int32)
+
+        def old_keys():
+            return old(), counting_engine.common.take(x, src)
+
+        def new_keys():
+            return counting_engine.rank_scatter(bits, 0, 8, base, tile,
+                                                torch.int32, [x], False)
+
+        old()
+        got = new()
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], out) and torch.equal(got[1], src)):
+            raise AssertionError("parent and change disagree")
+        rows = [("bits + src", old, new)]
+        if not wide:
+            rows.append(("sort_keys pass (keys carried; parent: bits + src "
+                         "and a gather of the keys)", old_keys, new_keys))
+        for label, a, b in rows:
+            t = [cuda_ms(f, 5) for f in (a, b, b, a)]
+            log("10 ab", f"rank_scatter {'u64' if wide else 'u32'} {label} "
+                f"n=2**28 width=8 tile={tile}: parent / change / change / "
+                f"parent {t[0]:.6f} / {t[1]:.6f} / {t[2]:.6f} / {t[3]:.6f} "
+                f"ms; median of 5 each, CUDA events; card: {card}")
+        del bits, base, out, src, got
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2269,8 +2500,9 @@ def main() -> int:
         entry("digit_histogram", hist_launches, hist_err, h["ms"],
               h["plain_ms"], bound(h["bytes"], 3 * (1 << 28)),
               h["library_ms"]),
-        # one pass at 2**28 u32; launches: the counting paths of phases 8
-        # and 13
+        # the sort_keys pass at 2**28 u32 (the keys carried, no src; its
+        # library call, torch.sort of the uint8 digits, computes src only);
+        # launches: the counting paths of phases 8 and 13
         entry("rank_scatter", rs_launches + rs_harness, rs_err, r["ms"],
               r["plain_ms"], bound(r["bytes"], r["ops"]), r["library_ms"]),
         # at the rate shape (2**18 rounds), where the loads set the time;

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels on the card (the bitonic sweep, the digit
-histogram, the counting engine's rank-and-scatter and the two probes):
+histogram, the counting engine's rank-and-scatter with its payloads and
+the two probes):
 against their plain PyTorch versions,
 through the public entry points (the bitonic and the portable engines, a
 donated sort, the partition front-end, the distributed sort on a one-rank
@@ -303,7 +304,7 @@ def _stage2(bits, shift, width, tile, R, idx_dt):
     Tr, nb = counts.shape[0] // R, counts.shape[1]
     base = th.exclusive_scan_bucket_major(counts.view(R, Tr, nb).to(idx_dt))
     row0 = torch.arange(R, dtype=idx_dt, device=bits.device) * (Tr * tile)
-    return (base + row0.view(R, 1, 1)).reshape(R * Tr, nb)
+    return base + row0.view(R, 1, 1)
 
 
 @pytest.mark.parametrize("n,wide,shift,width,tile,R,idx_dt,kind", [
@@ -337,30 +338,145 @@ def test_rank_scatter_kernel_matches_plain_version(cuda, n, wide, shift,
     bits = torch.from_numpy(x.view(np.int64 if wide else np.int32)).to(cuda)
     base = _stage2(bits, shift, width, tile, R, idx_dt)
     before = tce.KERNEL_LAUNCHES
-    got_bits, got_src = tce.rank_scatter(bits, shift, width, base, tile,
-                                         idx_dt)
+    got_bits, got_src, moved = tce.rank_scatter(bits, shift, width, base,
+                                                tile, idx_dt)
     assert tce.KERNEL_LAUNCHES == before + 1 and got_src.is_cuda
-    want_bits, want_src = tce.rank_scatter_reference(bits, shift, width,
-                                                     base, tile, idx_dt)
-    assert got_src.dtype == idx_dt
+    want_bits, want_src, _ = tce.rank_scatter_reference(bits, shift, width,
+                                                        base, tile, idx_dt)
+    assert got_src.dtype == idx_dt and moved == []
     assert torch.equal(got_src, want_src)
     assert torch.equal(got_bits, want_bits)
+
+
+def _payloads(rng, n, row_bytes, device):
+    """One payload per entry of row_bytes, random, on ``device``: 1-byte
+    rows as bool, 16-byte rows as an (n, 4) uint32 leaf."""
+    out = []
+    for rb in row_bytes:
+        if rb == 1:
+            a = torch.from_numpy(rng.random(n) < 0.5)
+        elif rb == 16:
+            a = torch.from_numpy(rng.integers(0, 2**32, size=(n, 4),
+                                              dtype=np.uint32))
+        else:
+            raw = rng.integers(0, 2**63, size=n, dtype=np.int64)
+            a = torch.from_numpy(raw.astype({2: np.int16, 4: np.float32,
+                                             8: np.int64}[rb]))
+        out.append(a.to(device))
+    return out
+
+
+def _check_kernel(cuda, x, shift, width, tile, R, idx_dt, row_bytes,
+                  want_src, rng):
+    """The kernel against its plain version: bits, src (or None) and every
+    payload bit-equal."""
+    wide = x.dtype == np.uint64
+    bits = torch.from_numpy(x.view(np.int64 if wide else np.int32)).to(cuda)
+    base = _stage2(bits, shift, width, tile, R, idx_dt)
+    payloads = _payloads(rng, x.shape[0], row_bytes, cuda)
+    before = tce.KERNEL_LAUNCHES
+    got = tce.rank_scatter(bits, shift, width, base, tile, idx_dt,
+                           payloads=payloads, want_src=want_src)
+    assert tce.KERNEL_LAUNCHES == before + 1
+    want = tce.rank_scatter_reference(bits, shift, width, base, tile, idx_dt,
+                                      payloads=payloads, want_src=want_src)
+    assert torch.equal(got[0], want[0])
+    if want_src:
+        assert got[1].dtype == idx_dt and torch.equal(got[1], want[1])
+    else:
+        assert got[1] is None
+    assert len(got[2]) == len(payloads)
+    for g, w in zip(got[2], want[2]):
+        assert g.dtype == w.dtype and g.shape == w.shape and g.is_cuda
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("want_src", [True, False])
+@pytest.mark.parametrize("row_bytes", [1, 2, 4, 8, 16])
+def test_rank_scatter_kernel_carries_each_row_size(cuda, row_bytes,
+                                                   want_src):
+    # 3 rows of 10 tiles of 1024: a chunk holds 8 tiles of one row, so each
+    # row ends in a chunk of 2 tiles and no chunk crosses a row
+    rng = np.random.default_rng([row_bytes, want_src])
+    x = rng.integers(0, 2**32, size=3 * 10 * 1024, dtype=np.uint32)
+    _check_kernel(cuda, x, 8, 8, 1024, 3, torch.int32, (row_bytes,) * 2,
+                  want_src, rng)
+
+
+@pytest.mark.parametrize("want_src", [True, False])
+@pytest.mark.parametrize("tile", [1024, 2048, 8192, 1 << 22])
+def test_rank_scatter_kernel_carries_max_payloads(cuda, tile, want_src):
+    rng = np.random.default_rng([tile, want_src])
+    R = 2
+    n = R * max(3 * tile, 1 << 22)
+    x = rng.integers(0, 2**32, size=n, dtype=np.uint32)
+    _check_kernel(cuda, x, 16, 8, tile, R, torch.int32, (1, 2, 8, 16),
+                  want_src, rng)
+
+
+@pytest.mark.parametrize("width", range(1, 9))
+def test_rank_scatter_kernel_u64_widths_padded_rows(cuda, width):
+    # u64 bits take chunks of 4096 words: 4 tiles of 1024, so rows of 5
+    # tiles end in a chunk of one tile; each row's tail is all ones, as the
+    # engine pads it; int64 src
+    rng = np.random.default_rng(width)
+    R, tile = 3, 1024
+    x = rng.integers(0, 2**64, size=(R, 5 * tile), dtype=np.uint64,
+                     endpoint=False)
+    x[:, -(tile // 2 + 17):] = np.iinfo(np.uint64).max
+    _check_kernel(cuda, x.reshape(-1), 64 - width, width, tile, R,
+                  torch.int64, (8, 4), True, rng)
+
+
+def test_counting_engine_gathers_only_what_it_cannot_carry(cuda):
+    rng = np.random.default_rng(21)
+    x = rng.integers(0, 2**32, size=300_000, dtype=np.uint32)
+    v = rng.integers(0, 2**32, size=300_000, dtype=np.uint32)
+    perm = np.argsort(x, kind="stable")
+    xd, vd = torch.from_numpy(x).to(cuda), torch.from_numpy(v).to(cuda)
+    before = (tce.GATHERED, tce.KERNEL_LAUNCHES)
+    k, got_v = tthrs.sort_pairs(xd, vd, method="counting")
+    got_k = tthrs.sort_keys(xd, method="counting")
+    assert tce.GATHERED == before[0] and tce.KERNEL_LAUNCHES > before[1]
+    np.testing.assert_array_equal(k.cpu().numpy(), x[perm])
+    np.testing.assert_array_equal(got_k.cpu().numpy(), x[perm])
+    np.testing.assert_array_equal(got_v.cpu().numpy(), v[perm])
+    # five arrays: the keys and three leaves ride, the fourth leaf is
+    # gathered
+    leaves = tuple(torch.from_numpy(v + np.uint32(i)).to(cuda)
+                   for i in range(4))
+    _, out = tthrs.sort_pairs(xd, leaves, method="counting")
+    assert tce.GATHERED == before[0] + 4  # one array, four passes
+    for i, leaf in enumerate(out):
+        np.testing.assert_array_equal(leaf.cpu().numpy(),
+                                      (v + np.uint32(i))[perm])
 
 
 def test_rank_scatter_kernel_refuses_what_it_does_not_take(cuda):
     bits = torch.zeros(4096, dtype=torch.int32, device=cuda)
     before = tce.KERNEL_LAUNCHES
     with pytest.raises(ValueError, match="at most 8 bits"):
-        tce.rank_scatter(bits, 0, 9, torch.zeros((2, 512), dtype=torch.int32,
+        tce.rank_scatter(bits, 0, 9, torch.zeros((1, 2, 512),
+                                                 dtype=torch.int32,
                                                  device=cuda),
                          2048, torch.int32)
     with pytest.raises(ValueError):
-        tce.rank_scatter(bits, 0, 8, torch.zeros((2, 256), dtype=torch.int32),
+        tce.rank_scatter(bits, 0, 8, torch.zeros((1, 2, 256),
+                                                 dtype=torch.int32),
                          2048, torch.int32)
     with pytest.raises(TypeError):
         tce.rank_scatter(bits.float(), 0, 8,
-                         torch.zeros((2, 256), dtype=torch.int32,
+                         torch.zeros((1, 2, 256), dtype=torch.int32,
                                      device=cuda), 2048, torch.int32)
+    base = torch.zeros((1, 2, 256), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="12 bytes"):
+        tce.rank_scatter(bits, 0, 8, base, 2048, torch.int32,
+                         payloads=[torch.zeros((4096, 3), device=cuda)])
+    with pytest.raises(ValueError, match="is on cpu"):
+        tce.rank_scatter(bits, 0, 8, base, 2048, torch.int32,
+                         payloads=[torch.zeros(4096)])
+    with pytest.raises(ValueError, match="multiples of 128"):
+        tce.rank_scatter(bits[:4000], 0, 8, base[:, :1], 4000, torch.int32)
     assert tce.KERNEL_LAUNCHES == before
 
 

@@ -62,3 +62,41 @@ def test_engine_parity(method, dtype, order):
         vals = rng.integers(0, 2**32, size=n, dtype=np.uint32)
         check_port(x, vals, method, f"{method} {np.dtype(dtype).name} "
                    f"{order} n={n}", order=order)
+
+
+def _leaves(rng, n, kinds):
+    """Value leaves of the given kinds: a dtype, or ``(dtype, cols)``."""
+    out = []
+    for kind in kinds:
+        dt, cols = kind if isinstance(kind, tuple) else (kind, None)
+        shape = (n,) if cols is None else (n, cols)
+        out.append(rng.integers(0, 2**16, size=shape).astype(dt))
+    return out
+
+
+@pytest.mark.parametrize("kinds", [
+    # more arrays than the kernel carries: the keys and three leaves ride
+    # as payloads, the last two leaves are gathered
+    (np.uint32, np.float64, np.int16, np.uint8, np.float32),
+    # rows the kernel does not take (12 bytes) beside ones it does
+    ((np.float32, 3), np.uint32, (np.float32, 3), (np.uint32, 4)),
+], ids=["six-arrays", "12-byte-rows"])
+@pytest.mark.parametrize("n", [2049, 5000])
+def test_counting_engine_carries_and_gathers_like_the_jax_engine(kinds, n):
+    from tinyhipradixsort_torch.ops import counting_engine as tce
+
+    rng = np.random.default_rng([n, len(kinds)])
+    x = rand_keys(rng, np.uint32, n)
+    x[::3] = x[1]  # ties: stability decides
+    vals = _leaves(rng, n, kinds)
+    jk, jv = jthrs.sort_pairs(jnp.asarray(x),
+                              tuple(jnp.asarray(v) for v in vals),
+                              method="counting")
+    before = tce.GATHERED
+    k, v = tthrs.sort_pairs(to_torch(x), tuple(to_torch(a) for a in vals),
+                            method="counting")
+    assert tce.GATHERED == before  # CPU tensors: nothing counted
+    assert_bits_equal(k, jk)
+    assert len(v) == len(vals)
+    for got, want in zip(v, jv):
+        assert_bits_equal(got, np.asarray(want))

@@ -7,8 +7,10 @@ against it on the card (``tests/test_torch_cuda.py``).
 
 ``base`` is stage 2's output, computed here with numpy: each row's
 bucket-major exclusive scan of its per-tile digit counts, plus the row's
-offset. The JAX function scans one row's counts itself, so R > 1 rows are
-R calls, each offset by its row's start.
+offset, as ``(rows, tiles per row, 2**width)``. The JAX function scans one
+row's counts itself, so R > 1 rows are R calls, each offset by its row's
+start. Payloads (rows of 1, 2, 4, 8 or 16 bytes) are held against
+``payload[src]`` of the JAX inverse permutation.
 """
 
 import jax.numpy as jnp
@@ -64,7 +66,7 @@ def _base(digits, R, tile, width):
         flat = counts.T.reshape(-1)
         ex = np.cumsum(flat) - flat
         rows.append(ex.reshape(nb, TILES_PER_ROW).T + r * TILES_PER_ROW * tile)
-    return np.concatenate(rows)
+    return np.stack(rows)
 
 
 def _jax_src(digits, R, tile, width, idx_np):
@@ -78,20 +80,52 @@ def _jax_src(digits, R, tile, width, idx_np):
         + r * per_row for r in range(R)])
 
 
-def _check(x, shift, width, R, tile, idx_np):
+def _payload(rng, n, row_bytes, k):
+    """A payload of ``n`` rows of ``row_bytes`` bytes, as the engine hands
+    them: 1-byte rows as bool or uint8, wider ones as 1-D or ``(n, 4)``."""
+    if row_bytes == 16:
+        return rng.integers(0, 2**32, size=(n, 4), dtype=np.uint32)
+    if row_bytes == 1 and k % 2:
+        return rng.random(n) < 0.5
+    dt = {1: np.uint8, 2: np.int16, 4: np.float32, 8: np.uint64}[row_bytes]
+    raw = rng.integers(0, 2**(8 * row_bytes), size=n,
+                       dtype={1: np.uint8, 2: np.uint16, 4: np.uint32,
+                              8: np.uint64}[row_bytes])
+    return raw.view(dt)
+
+
+def _torch_payload(a):
+    t = torch.from_numpy(a.view(np.int64) if a.dtype == np.uint64 else a)
+    return t.view(torch.uint64) if a.dtype == np.uint64 else t
+
+
+def _check(x, shift, width, R, tile, idx_np, payloads=(), want_src=True):
     digits = _digits(x, shift, width)
-    want_src = _jax_src(digits, R, tile, width, idx_np)
+    want_src_np = _jax_src(digits, R, tile, width, idx_np)
     idx_dt = torch.int64 if idx_np == np.int64 else torch.int32
     sdt = np.int64 if x.dtype == np.uint64 else np.int32
     bits = torch.from_numpy(x.view(sdt).copy())
     base = torch.from_numpy(_base(digits, R, tile, width).astype(idx_np))
     before = tce.KERNEL_LAUNCHES
-    bits_out, src = tce.rank_scatter(bits, shift, width, base, tile, idx_dt)
+    bits_out, src, moved = tce.rank_scatter(
+        bits, shift, width, base, tile, idx_dt,
+        payloads=[_torch_payload(p) for p in payloads], want_src=want_src)
     assert tce.KERNEL_LAUNCHES == before  # CPU tensors: the plain version
-    assert src.dtype == idx_dt and bits_out.dtype == bits.dtype
-    np.testing.assert_array_equal(src.numpy(), want_src)
+    assert bits_out.dtype == bits.dtype
+    if want_src:
+        assert src.dtype == idx_dt
+        np.testing.assert_array_equal(src.numpy(), want_src_np)
+    else:
+        assert src is None
     np.testing.assert_array_equal(bits_out.numpy().view(x.dtype),
-                                  x[want_src])
+                                  x[want_src_np])
+    assert len(moved) == len(payloads)
+    for p, m in zip(payloads, moved):
+        got = (m.view(torch.int64).numpy().view(np.uint64)
+               if m.dtype == torch.uint64 else m.numpy())
+        assert got.dtype == p.dtype and got.shape == p.shape
+        np.testing.assert_array_equal(got.view(np.uint8),
+                                      p[want_src_np].view(np.uint8))
 
 
 @pytest.mark.parametrize("idx_np", [np.int32, np.int64])
@@ -115,6 +149,29 @@ def test_plain_version_matches_the_jax_pass_on_skewed_digits(kind, wide, R):
     _check(x, shift, 8, R, 2048, np.int32)
 
 
+@pytest.mark.parametrize("want_src", [True, False])
+@pytest.mark.parametrize("row_bytes", tce.ROW_BYTES)
+def test_plain_version_carries_each_row_size(row_bytes, want_src):
+    rng = np.random.default_rng([RNG_SEED, row_bytes, want_src])
+    R, tile = 2, 1024
+    x = _make_bits("random", False, R, tile, rng)
+    n = x.shape[0]
+    payloads = [_payload(rng, n, row_bytes, k) for k in range(2)]
+    _check(x, 8, 8, R, tile, np.int32, payloads, want_src)
+
+
+@pytest.mark.parametrize("want_src", [True, False])
+@pytest.mark.parametrize("count", range(tce.MAX_PAYLOADS + 1))
+def test_plain_version_carries_up_to_max_payloads(count, want_src):
+    rng = np.random.default_rng([RNG_SEED, count, want_src, 1])
+    R, tile = 3, 1024
+    x = _make_bits("padded", True, R, tile, rng)
+    n = x.shape[0]
+    payloads = [_payload(rng, n, tce.ROW_BYTES[(count + k) % 5], k)
+                for k in range(count)]
+    _check(x, 56, 8, R, tile, np.int64, payloads, want_src)
+
+
 def test_engine_marks_its_stages_and_launches_nothing_on_the_cpu():
     x = np.random.default_rng(RNG_SEED).integers(0, 2**32, size=5000,
                                                  dtype=np.uint32)
@@ -132,9 +189,21 @@ def test_engine_marks_its_stages_and_launches_nothing_on_the_cpu():
     assert tce.KERNEL_LAUNCHES == before
 
 
+def test_engine_carries_what_the_kernel_takes_and_gathers_the_rest():
+    n = 100
+    arrays = [torch.zeros(n, dtype=dt) for dt in
+              (torch.int32, torch.uint8, torch.float64, torch.int16)]
+    arrays += [torch.zeros((n, 3), dtype=torch.float32),  # 12-byte rows
+               torch.zeros((n, 4), dtype=torch.uint32),
+               torch.zeros(n, dtype=torch.bool)]
+    assert tce.carried(arrays, n) == [0, 1, 2, 3]
+    assert tce.carried(arrays[4:], n) == [1, 2]
+    assert tce.carried([arrays[4]], n) == []
+
+
 def test_rank_scatter_refuses_what_it_does_not_take():
     bits = torch.zeros(2048, dtype=torch.int32)
-    base = torch.zeros((1, 256), dtype=torch.int32)
+    base = torch.zeros((1, 1, 256), dtype=torch.int32)
     with pytest.raises(ValueError, match="no rank_scatter implementation"):
         tce.rank_scatter(bits.to("meta"), 0, 8, base.to("meta"), 2048,
                          torch.int32)
@@ -145,8 +214,20 @@ def test_rank_scatter_refuses_what_it_does_not_take():
     with pytest.raises(ValueError):  # not whole tiles
         tce.rank_scatter(bits, 0, 8, base, 1000, torch.int32)
     with pytest.raises(ValueError):  # base of the wrong shape
-        tce.rank_scatter(bits, 0, 8, base[:, :128], 2048, torch.int32)
+        tce.rank_scatter(bits, 0, 8, base[:, :, :128], 2048, torch.int32)
+    with pytest.raises(ValueError):  # base without its rows axis
+        tce.rank_scatter(bits, 0, 8, base[0], 2048, torch.int32)
     with pytest.raises(ValueError):  # base of the wrong dtype
         tce.rank_scatter(bits, 0, 8, base.long(), 2048, torch.int32)
     with pytest.raises(ValueError):  # the window past the word
         tce.rank_scatter(bits, 28, 8, base, 2048, torch.int32)
+    ok = torch.zeros(2048, dtype=torch.int32)
+    for bad, what in [([ok] * 5, "at most 4"),
+                      ([torch.zeros((2048, 3))], "12 bytes"),
+                      ([torch.zeros(2047, dtype=torch.int32)], "2048 rows"),
+                      ([torch.zeros((4, 2048)).t()], "contiguous"),
+                      ([torch.zeros((2048, 8), dtype=torch.int32)],
+                       "32 bytes")]:
+        with pytest.raises(ValueError, match=what):
+            tce.rank_scatter(bits, 0, 8, base, 2048, torch.int32,
+                             payloads=bad)

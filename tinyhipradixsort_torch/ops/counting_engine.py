@@ -14,11 +14,13 @@ kernel.cu:73-103/136-204/206-429):
    (bucket, tile) its global base offset);
 3. stable rank within the tile + scatter (<- reorderKey/reorderKeyPair),
    :func:`rank_scatter`: on CUDA tensors the hand-written kernel
-   ``csrc/rank_scatter.cu`` (warp ballots and per-warp counters, as the
-   reference ranks), on CPU tensors :func:`rank_scatter_reference`, the JAX
-   package's one-hot cumulative sum taken a chunk of tiles at a time (its
-   ``lax.map``). Both return the pass's sorted bits and its inverse
-   permutation ``src``, which the other arrays are gathered by.
+   ``csrc/rank_scatter.cu`` (per-warp digit masks and counters, the
+   reference's warp-level match), on CPU tensors
+   :func:`rank_scatter_reference`, the JAX package's one-hot cumulative
+   sum taken a chunk of tiles at a time (its ``lax.map``). Both move up to
+   :data:`MAX_PAYLOADS` arrays with the bits (the reference's
+   ``reorderKeyPair`` moves its values so); an array left over is gathered
+   by the pass's inverse permutation ``src``, which is written only then.
 
 Padding sorts to the tail: all-ones bits take the top digit in every pass,
 and stability keeps them after every real element. Batched ``(B, n)`` rows
@@ -42,9 +44,18 @@ RANK_CHUNK = 1 << 28
 #: widest digit the rank-and-scatter kernel takes (the reference's 8 bits)
 KERNEL_MAX_WIDTH = 8
 
+#: payloads one rank-and-scatter call carries, and the row sizes it takes
+#: (the reference's 4-, 8- and 16-byte values, the 1-byte -0.0 flag and
+#: 2-byte 16-bit keys)
+MAX_PAYLOADS = 4
+ROW_BYTES = (1, 2, 4, 8, 16)
+
 #: launches of the CUDA rank-and-scatter kernel in this process (counted
 #: only where the kernel is launched)
 KERNEL_LAUNCHES = 0
+#: arrays the engine gathered by ``src`` with :func:`common.take` on CUDA
+#: tensors (those it could not carry through the kernel)
+GATHERED = 0
 
 
 def _index_dtype(n: int) -> torch.dtype:
@@ -80,7 +91,13 @@ def _tile_ranks(digits: torch.Tensor, num_buckets: int) -> torch.Tensor:
     return rank
 
 
-def _check_rank_scatter(bits, shift, width, base, tile, idx_dtype):
+def payload_row_bytes(p: torch.Tensor, n: int) -> int:
+    """Bytes of one row of a payload of ``n`` rows: ``numel // n *
+    itemsize`` (an ``(n, 4)`` u32 leaf is one 16-byte row)."""
+    return p.numel() // n * p.dtype.itemsize if n else p.dtype.itemsize
+
+
+def _check_rank_scatter(bits, shift, width, base, tile, idx_dtype, payloads):
     if bits.dtype not in (torch.int32, torch.int64) or bits.ndim != 1:
         raise TypeError("rank_scatter takes 1-D int32/int64 key bits, got "
                         f"{bits.dtype} of shape {tuple(bits.shape)}")
@@ -92,107 +109,174 @@ def _check_rank_scatter(bits, shift, width, base, tile, idx_dtype):
         raise ValueError(f"digit window shift={shift} width={width} does not "
                          f"fit {nbits}-bit bits")
     n = bits.shape[0]
-    if tile < 1 or n % tile:
-        raise ValueError(f"{n} bits are not whole tiles of {tile}")
-    if base.shape != (n // tile, 1 << width) or base.dtype != idx_dtype:
-        raise ValueError(f"base must be ({n // tile}, {1 << width}) "
+    if (base.ndim != 3 or base.shape[2] != 1 << width
+            or base.dtype != idx_dtype):
+        raise ValueError(f"base must be (rows, tiles per row, {1 << width}) "
                          f"{idx_dtype}, got {tuple(base.shape)} {base.dtype}")
+    if tile < 1 or n != base.shape[0] * base.shape[1] * tile:
+        raise ValueError(f"{n} bits are not {base.shape[0]} rows of "
+                         f"{base.shape[1]} tiles of {tile}")
+    if len(payloads) > MAX_PAYLOADS:
+        raise ValueError(f"rank_scatter carries at most {MAX_PAYLOADS} "
+                         f"payloads, got {len(payloads)}")
+    for k, p in enumerate(payloads):
+        if p.ndim == 0 or p.shape[0] != n or not p.is_contiguous():
+            raise ValueError(f"payload {k} must be a contiguous tensor with "
+                             f"{n} rows on axis 0, got {tuple(p.shape)}")
+        if payload_row_bytes(p, n) not in ROW_BYTES:
+            raise ValueError(f"payload {k} has rows of "
+                             f"{payload_row_bytes(p, n)} bytes; rank_scatter "
+                             f"carries rows of {ROW_BYTES} bytes")
+        if p.device != bits.device:
+            raise ValueError(f"payload {k} is on {p.device}, bits on "
+                             f"{bits.device}")
 
 
 def rank_scatter_reference(bits: torch.Tensor, shift: int, width: int,
                            base: torch.Tensor, tile: int,
-                           idx_dtype: torch.dtype):
+                           idx_dtype: torch.dtype, payloads=(),
+                           want_src: bool = True):
     """Plain PyTorch version of the kernel: the one-hot rank of
     :func:`_tile_ranks`, the ``dest`` gather from ``base``, the scatter of
-    an iota into ``src`` and the bits gathered by ``src``."""
-    _check_rank_scatter(bits, shift, width, base, tile, idx_dtype)
+    an iota into ``src``, and the bits and each payload gathered by
+    ``src``."""
+    _check_rank_scatter(bits, shift, width, base, tile, idx_dtype, payloads)
     digits = common.extract_digit(bits, shift, width).view(-1, tile)
     rank = _tile_ranks(digits, 1 << width)
-    dest = base.gather(1, digits.long()) + rank
+    dest = base.reshape(-1, 1 << width).gather(1, digits.long()) + rank
     n = bits.shape[0]
     src = torch.empty(n, dtype=idx_dtype, device=bits.device)
     src[dest.view(-1).long()] = torch.arange(n, dtype=idx_dtype,
                                              device=bits.device)
-    return common.take(bits, src), src
+    moved = [common.take(p, src) for p in payloads]
+    return common.take(bits, src), src if want_src else None, moved
+
+
+class _Payload(ctypes.Structure):
+    """One entry of the C interface's payload array."""
+    _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p),
+                ("row_bytes", ctypes.c_longlong)]
 
 
 @functools.cache
 def _rank_scatter_fn():
     fn = cuda_lib.load("rank_scatter").thrs_rank_scatter
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(_Payload), ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch_rank_scatter(bits, shift, width, base, tile, idx_dtype):
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous, at an address the kernel's 16-byte copies take."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch_rank_scatter(bits, shift, width, base, tile, idx_dtype, payloads,
+                         want_src):
     global KERNEL_LAUNCHES
-    _check_rank_scatter(bits, shift, width, base, tile, idx_dtype)
+    _check_rank_scatter(bits, shift, width, base, tile, idx_dtype, payloads)
     if width > KERNEL_MAX_WIDTH:
         raise ValueError(f"the rank-and-scatter kernel takes digits of at "
                          f"most {KERNEL_MAX_WIDTH} bits, got {width}")
+    if tile % 128:
+        raise ValueError(f"the rank-and-scatter kernel takes tiles that are "
+                         f"multiples of 128, got {tile}")
     if base.device != bits.device:
         raise ValueError(f"base is on {base.device}, bits on {bits.device}")
-    bits = bits.contiguous()
+    bits = _aligned(bits)
+    payloads = [_aligned(p) for p in payloads]
     base = base.contiguous()
     n = bits.shape[0]
     bits_out = torch.empty_like(bits)
-    src = torch.empty(n, dtype=idx_dtype, device=bits.device)
+    src = torch.empty(n, dtype=idx_dtype, device=bits.device) if want_src \
+        else None
+    moved = [torch.empty_like(p) for p in payloads]
     if n == 0:
-        return bits_out, src
+        return bits_out, src, moved
+    table = (_Payload * MAX_PAYLOADS)()
+    for k, (p, q) in enumerate(zip(payloads, moved)):
+        table[k] = _Payload(p.data_ptr(), q.data_ptr(),
+                            payload_row_bytes(p, n))
+    # the kernel hands its blocks their work in order from this counter
+    tickets = torch.zeros(1, dtype=torch.int32, device=bits.device)
     fn = _rank_scatter_fn()
     with torch.cuda.device(bits.device):
         stream = torch.cuda.current_stream(bits.device).cuda_stream
-        rc = fn(bits.data_ptr(), bits.dtype.itemsize, n, shift, width, tile,
-                base.data_ptr(), src.dtype.itemsize, bits_out.data_ptr(),
-                src.data_ptr(), stream)
+        rc = fn(bits.data_ptr(), bits.dtype.itemsize, n, base.shape[0],
+                shift, width, tile, base.data_ptr(), idx_dtype.itemsize,
+                bits_out.data_ptr(), src.data_ptr() if want_src else None,
+                table, len(payloads), stream, tickets.data_ptr())
     if rc != 0:
         raise RuntimeError(f"rank-and-scatter kernel launch failed: CUDA "
                            f"error {rc} (n={n} shift={shift} width={width} "
-                           f"tile={tile})")
+                           f"tile={tile} rows={base.shape[0]} payloads="
+                           f"{len(payloads)})")
     KERNEL_LAUNCHES += 1
-    return bits_out, src
+    return bits_out, src, moved
 
 
 def rank_scatter(bits: torch.Tensor, shift: int, width: int,
-                 base: torch.Tensor, tile: int, idx_dtype: torch.dtype):
-    """Stage 3 of one pass: ``(bits_out, src)`` with ``bits_out =
-    bits[src]``, where element ``i`` of tile ``t`` with digit ``d`` goes to
-    ``base[t, d]`` plus its stable rank among the equal digits before it in
-    its tile.
+                 base: torch.Tensor, tile: int, idx_dtype: torch.dtype,
+                 payloads=(), want_src: bool = True):
+    """Stage 3 of one pass: ``(bits_out, src, moved)`` with ``bits_out =
+    bits[src]`` and ``moved[k] = payloads[k][src]``, where element ``i`` of
+    tile ``t`` with digit ``d`` goes to ``base[t, d]`` plus its stable rank
+    among the equal digits before it in its tile.
 
     bits: the flat padded key bits of the pass (int32/int64 holding the
-    unsigned pattern), whole tiles of ``tile``; base: ``(num_tiles,
-    2**width)`` in ``idx_dtype`` (int32 or int64), stage 2's offsets.
-    ``src`` is the inverse permutation in ``idx_dtype``: ``out = x[src]``.
+    unsigned pattern), ``rows`` rows of whole tiles of ``tile``; base:
+    ``(rows, tiles per row, 2**width)`` in ``idx_dtype`` (int32 or int64),
+    stage 2's offsets (each row's bucket-major exclusive scan plus the
+    row's start). ``src`` is the inverse permutation in ``idx_dtype``
+    (``out = x[src]``), or None when ``want_src`` is false. payloads: at
+    most :data:`MAX_PAYLOADS` contiguous tensors with the n elements on
+    axis 0 and rows of :data:`ROW_BYTES` bytes, moved bit for bit; any
+    other payload raises.
 
     CUDA tensors go through the kernel (built at first use; digits of at
     most :data:`KERNEL_MAX_WIDTH` bits), CPU tensors through
     :func:`rank_scatter_reference`; any other device raises.
     """
+    payloads = tuple(payloads)
     if common.on_cuda(bits):
-        return _launch_rank_scatter(bits, shift, width, base, tile, idx_dtype)
+        return _launch_rank_scatter(bits, shift, width, base, tile, idx_dtype,
+                                    payloads, want_src)
     if bits.device.type != "cpu":
         raise ValueError(f"no rank_scatter implementation for {bits.device}")
-    return rank_scatter_reference(bits, shift, width, base, tile, idx_dtype)
+    return rank_scatter_reference(bits, shift, width, base, tile, idx_dtype,
+                                  payloads, want_src)
 
 
-def _pass_inverse_perm(bits, shift: int, width: int, counts, tile: int,
-                       idx_dt, mark):
+def _pass(bits, shift: int, width: int, counts, tile: int, idx_dt, payloads,
+          want_src: bool, mark):
     """One pass of R rows of Tr tiles: ``bits`` flat, its per-tile counts
-    ``(R, Tr, 2**width)`` -> ``(bits_out, src)`` of :func:`rank_scatter`,
-    ``src`` indexing the flat rows with ``out = x[src]``."""
-    R, Tr, num_buckets = counts.shape
+    ``(R, Tr, 2**width)`` -> :func:`rank_scatter`'s ``(bits_out, src,
+    moved)``, ``src`` indexing the flat rows with ``out = x[src]``."""
+    R, Tr, _ = counts.shape
     # stage 2: each row's bucket-major exclusive scan, offset to its range
     base = histogram.exclusive_scan_bucket_major(counts.to(idx_dt))
     row0 = torch.arange(R, dtype=idx_dt, device=bits.device) * (Tr * tile)
-    base = (base + row0.view(R, 1, 1)).reshape(R * Tr, num_buckets)
+    base = base + row0.view(R, 1, 1)
     mark("scan")
-    out = rank_scatter(bits, shift, width, base, tile, idx_dt)
+    out = rank_scatter(bits, shift, width, base, tile, idx_dt, payloads,
+                       want_src)
     mark("rank_scatter")
     return out
+
+
+def carried(arrays, n: int) -> list[int]:
+    """Which of ``arrays`` (each with ``n`` rows on axis 0) the kernel
+    carries as payloads: the first :data:`MAX_PAYLOADS` whose rows it
+    takes. The others are gathered by ``src``."""
+    ok = [k for k, a in enumerate(arrays)
+          if payload_row_bytes(a, n) in ROW_BYTES]
+    return ok[:MAX_PAYLOADS]
 
 
 def sort_arrays_counting(bits, arrays, start_bit: int, end_bit: int,
@@ -205,7 +289,12 @@ def sort_arrays_counting(bits, arrays, start_bit: int, end_bit: int,
     as it is). ``mark(stage)``, when given, is called after the padding
     (``"pad"``) and after each stage of each pass (``"histogram"``,
     ``"scan"``, ``"rank_scatter"`` and ``"gathers"``), for timing.
+
+    Up to :data:`MAX_PAYLOADS` arrays ride through :func:`rank_scatter` as
+    payloads (:func:`carried`); ``src`` is asked for only when an array is
+    left over, and the leftovers are gathered by it.
     """
+    global GATHERED
     if tile != histogram.round_tile(tile):
         raise ValueError(f"tile {tile} is not a histogram tile (a multiple "
                          "of 128 in [1024, 2**22])")
@@ -226,14 +315,20 @@ def sort_arrays_counting(bits, arrays, start_bit: int, end_bit: int,
         bits_p = bits_p.view(-1)
         arrays_p = [a.view(R * npad, *a.shape[2:]) for a in arrays_p]
         mark("pad")
+        keep = carried(arrays_p, R * npad)
+        rest = [k for k in range(len(arrays_p)) if k not in keep]
         for shift, width in common.digit_plan(start_bit, end_bit, radix_bits):
             # stage 1: per-tile counts (each row is whole tiles: no tail pad)
             counts = histogram.digit_histogram(bits_p, shift, width, tile)
             mark("histogram")
-            bits_p, src = _pass_inverse_perm(
+            bits_p, src, moved = _pass(
                 bits_p, shift, width, counts.view(R, Tr, 1 << width), tile,
-                idx_dt, mark)
-            arrays_p = [common.take(a, src) for a in arrays_p]
+                idx_dt, [arrays_p[k] for k in keep], bool(rest), mark)
+            for k, a in zip(keep, moved):
+                arrays_p[k] = a
+            for k in rest:
+                arrays_p[k] = common.take(arrays_p[k], src)
+                GATHERED += common.on_cuda(src)
             mark("gathers")
         out = [a.view(R, npad, *a.shape[1:])[:, :n].contiguous()
                for a in arrays_p]
