@@ -9,15 +9,15 @@ Run from the root of the repository, on a machine with a Hopper card
 Phases, one output line each (time, kernel launches, result):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the five kernels (bitonic sweep, digit histogram, the counting
-   engine's rank-and-scatter, gather floor, partition scatter), one nvcc
-   each, all started together, from csrc/ into the ignored _build/, with
-   each one's nvcc time and, for each kernel function (each word count of
-   the sweep's register body, each type of a template), ptxas registers
-   and spill bytes (kept beside a reused library); the main path's 1-, 3-
-   and 5-word instantiations and the four rank-and-scatter ones (u32/u64
-   bits, int32/int64 src; each carries every payload row size) are
-   required to spill nothing;
+2. build: the six kernels (bitonic sweep, digit histogram, the counting
+   engine's bucket scan and rank-and-scatter, gather floor, partition
+   scatter), one nvcc each, all started together, from csrc/ into the
+   ignored _build/, with each one's nvcc time and, for each kernel
+   function (each word count of the sweep's register body, each type of
+   a template), ptxas registers and spill bytes (kept beside a reused
+   library); the main path's 1-, 3- and 5-word instantiations and the
+   four rank-and-scatter ones (u32/u64 bits, int32/int64 src; each
+   carries every payload row size) are required to spill nothing;
 3. kernel vs plain: sweeps of 1, 2, 3, 4, 5, 8 and 12 words (local, cross,
    forced ascending) on 2**20 random words, the cross sweeps over the top
    index bits of the 2**28 and 2**31 one-word and 2**24 three-word
@@ -55,6 +55,12 @@ Phases, one output line each (time, kernel launches, result):
    through ``digit_histogram_reference`` (u32 at 2**20 and 2**28, shifts
    0/8/16/24, tiles 8192 and 2048, widths 1, 2, 5 and 12, an odd tile, an n
    that is no tile multiple, u64 with shift 40), required bit-equal; then
+   ``bucket_offsets`` through the bucket-scan kernel and through
+   ``bucket_offsets_reference`` (the sort_keys pass's counts at 2**28,
+   width 8, tile 2048, int32 and int64 offsets; widths 1-8 x tiles 1024,
+   2048 and 2176 x 1, 3 and 64 rows; rows just below, at and above the
+   kernel's chunk of 128 tiles; int64 offsets; every count in one bucket),
+   required bit-equal and contiguous; then
    ``rank_scatter`` through the kernel and through
    ``rank_scatter_reference`` (2**28 u32 at width 8 and tile 2048: the
    sort_keys pass with the keys carried, the sort_pairs pass with two
@@ -68,14 +74,18 @@ Phases, one output line each (time, kernel launches, result):
    descending f64, 2-D rows 4096x4096), "argsort" and "lsd_argsort"
    (pairs), and segment_ids= from segment_ids_from_offsets, each bit-exact
    against the numpy oracle, each counting case required to launch the
-   histogram and the rank-and-scatter kernels;
+   histogram, bucket-scan and rank-and-scatter kernels;
 9. probes: the gather-floor and partition-scatter probes through their
    tool entry points, each kernel required equal to its plain version; the
    gather floor at its default shape (m = 4096, 2048 rounds) and at the
    rate shape (2**18 rounds, which the kernel report carries), each beside
    its bound and its share of it;
 10. timing of the new kernels and engine: the histogram at 2**28 beside its
-   plain version, torch.bincount and its bound; the rank-and-scatter kernel
+   plain version, torch.bincount and its bound; the bucket scan at 2**28
+   (width 8, tile 2048; int32 and int64 offsets) beside its plain version,
+   torch.cumsum of the bucket-major counts and its bound, with the copy
+   that made the earlier stage 2's offsets contiguous timed alone; the
+   rank-and-scatter kernel
    on one pass at 2**28 (width 8, tile 2048) for each set of output
    streams (``STREAM_ROWS``: bits; + src; + a u32 payload, the sort_keys
    pass; + src + a u32 payload; + a 16-byte payload; u64 bits + a u64
@@ -83,10 +93,15 @@ Phases, one output line each (time, kernel launches, result):
    aligned lines), each with its bytes, its bound and its share
    of it, three of them beside the plain version and torch.sort of the
    uint8 digits; counting sort_keys u32 and sort_pairs u32+u32 at 2**28
-   (checked against torch.sort, required to launch both kernels and to
-   gather nothing: ``counting_engine.GATHERED``) beside torch.sort and the
-   bitonic sort_keys, each with its per-stage breakdown. ``counting_only``
-   runs phases 2 (the counting kernels), 7 and 10 alone, and, given
+   (checked against torch.sort, required to launch the three counting
+   kernels, to call no torch.cumsum and to gather nothing:
+   ``counting_engine.GATHERED``) beside torch.sort and the bitonic
+   sort_keys, each with its per-stage breakdown, and each beside the same
+   sort with stage 2 done as before the bucket-scan kernel (``scan_ab``:
+   the bucket-major cumsum and the copy rank_scatter then made), in turns,
+   as are the three row cells of phase 5 through the counting engine.
+   ``counting_only`` runs phases 2 (the counting kernels), 7 and 10 alone,
+   and, given
    another rank_scatter.cu with the bits-and-src C interface of the
    kernel before payloads, the A/B against it (``rank_scatter_ab``);
 11. the distributed sort on a one-rank NCCL group (NCCL allows one rank per
@@ -126,8 +141,8 @@ Phases, one output line each (time, kernel launches, result):
    ``entry``; ``benchmarks.scaling`` at world size 1;
    ``tools.baseline_scale``; and the counting engine through the bench at
    2**28 (--method counting, --verify full) and ``tools.drive --method
-   counting``, each required to launch the rank-and-scatter kernel. Each
-   step raises on a failure.
+   counting``, each required to launch the bucket-scan and
+   rank-and-scatter kernels. Each step raises on a failure.
 
 The line before the last is the kernel report, {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero
@@ -137,6 +152,7 @@ phases 5 and 6 alone (see there).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -178,12 +194,15 @@ from tinyhipradixsort_torch.tools import cuda_ms  # noqa: E402
 from tinyhipradixsort_torch.tools import gather_floor as gf  # noqa: E402
 from tinyhipradixsort_torch.tools import partition_dma_floor as pdf  # noqa: E402
 from tinyhipradixsort_torch.utils import native_oracle  # noqa: E402
+from tinyhipradixsort_torch.utils import trace  # noqa: E402
 
 SEED = 20260
 #: kernel (its source is csrc/<name>.cu) -> the TPU kernel it replaces
 KERNELS = {
     "bitonic_sweep": "tinyhipradixsort_tpu/ops/bitonic_engine.py:267",
     "digit_histogram": "tinyhipradixsort_tpu/ops/histogram.py:38",
+    "bucket_scan": "no TPU kernel: XLA cumsum of stage 2, "
+                   "tinyhipradixsort_tpu/ops/histogram.py:91",
     "rank_scatter": "no TPU kernel: jnp stage 3, "
                     "tinyhipradixsort_tpu/ops/counting_engine.py:35",
     "gather_floor": "tools/gather_floor.py:43",
@@ -1176,15 +1195,85 @@ def phase_histogram() -> int:
 
 def _stage2(bits: torch.Tensor, shift: int, width: int, tile: int, rows: int,
             idx_dt: torch.dtype) -> torch.Tensor:
-    """The counting engine's stage 2 for ``rows`` rows of whole tiles: the
-    plain histogram's counts, each row's bucket-major exclusive scan, the
-    rows' offsets; ``(rows, tiles per row, 2**width)`` in ``idx_dt``."""
+    """The counting engine's stage 2 for ``rows`` rows of whole tiles by
+    the plain versions (histogram and bucket scan); ``(rows, tiles per row,
+    2**width)`` in ``idx_dt``."""
     counts = hist.digit_histogram_reference(bits, shift, width, tile)
-    Tr, nb = counts.shape[0] // rows, counts.shape[1]
-    base = hist.exclusive_scan_bucket_major(
-        counts.view(rows, Tr, nb).to(idx_dt))
-    row0 = torch.arange(rows, dtype=idx_dt, device=bits.device) * (Tr * tile)
-    return base + row0.view(rows, 1, 1)
+    return hist.bucket_offsets_reference(
+        counts.view(rows, counts.shape[0] // rows, counts.shape[1]), tile,
+        idx_dt)
+
+
+def _tile_counts(rows: int, Tr: int, width: int, tile: int, kind: str,
+                 gen: torch.Generator) -> torch.Tensor:
+    """(rows, Tr, 2**width) int32 counts on the card whose tiles each sum
+    to ``tile``: random cut points, or every element in one bucket."""
+    nb = 1 << width
+    if kind == "one":
+        counts = torch.zeros((rows, Tr, nb), dtype=torch.int32, device="cuda")
+        counts[:, :, nb // 3] = tile
+        return counts
+    cuts = torch.randint(0, tile + 1, (rows, Tr, nb - 1), generator=gen,
+                         device="cuda").sort(dim=-1).values
+    edges = torch.cat([torch.zeros_like(cuts[..., :1]), cuts,
+                       torch.full_like(cuts[..., :1], tile)], dim=-1)
+    return edges.diff(dim=-1).to(torch.int32)
+
+
+def bucket_scan_cases():
+    """(rows, tiles per row, width, tile, idx_dt, kind); kind "keys" is
+    the histogram of the bench keys (the sort_keys pass at 2**28)."""
+    i32, i64 = torch.int32, torch.int64
+    cases = [(1, (1 << 28) // 2048, 8, 2048, i32, "keys"),
+             (1, (1 << 28) // 2048, 8, 2048, i64, "keys")]
+    # rows of 1030, 300 and 130 tiles: several chunks, the last one short
+    cases += [(R, {1: 1030, 3: 300, 64: 130}[R], width, tile, i32, "random")
+              for width in range(1, 9) for tile in (1024, 2048, 2176)
+              for R in (1, 3, 64)]
+    cases += [(1, 1030, 8, 2048, i64, "random"),
+              (2, 127, 8, 2048, i32, "random"),  # a row is one chunk
+              (2, 128, 8, 2048, i64, "random"),
+              (2, 129, 8, 2048, i32, "random"),  # a chunk of 1 tile
+              (5, 257, 3, 2048, i64, "random"),
+              (64, 2, 8, 2048, i32, "random"),
+              (3, 300, 8, 2048, i64, "one"),      # the other buckets empty
+              (3, 5, 8, 2048, i32, "one")]
+    return cases
+
+
+def phase_bucket_scan(x: torch.Tensor) -> int:
+    """The bucket-scan kernel against its plain version, bit-equal and
+    contiguous as written. Returns the largest absolute difference (0)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 71)
+    worst = 0
+    for R, Tr, width, tile, idx_dt, kind in bucket_scan_cases():
+        if kind == "keys":
+            counts = hist.digit_histogram(x.view(torch.int32), 0, width,
+                                          tile).view(R, Tr, 1 << width)
+        else:
+            counts = _tile_counts(R, Tr, width, tile, kind, gen)
+        before = hist.SCAN_LAUNCHES
+        got = hist.bucket_offsets(counts, tile, idx_dt)
+        if hist.SCAN_LAUNCHES != before + 1:
+            raise AssertionError("bucket_offsets did not launch its kernel")
+        want = hist.bucket_offsets_reference(counts, tile, idx_dt)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        ok = (got.dtype == idx_dt and got.is_contiguous()
+              and torch.equal(got, want))
+        log("7 bucket-scan-vs-plain",
+            f"rows={R} tiles={Tr} width={width} tile={tile} "
+            f"{str(idx_dt)[6:]} {kind}: max_abs_err={err} "
+            f"{'bit-equal' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"bucket scan kernel != plain version "
+                                 f"(rows={R} tiles={Tr} width={width} "
+                                 f"tile={tile} {idx_dt} {kind})")
+        worst = max(worst, err)
+        del counts, got, want
+    torch.cuda.empty_cache()
+    return worst
 
 
 def _payloads(n: int, row_bytes, gen: torch.Generator) -> list:
@@ -1408,22 +1497,27 @@ def portable_cases():
     ]
 
 
-def phase_portable() -> tuple[int, int]:
-    """Returns the histogram's and the rank-and-scatter kernel's launches."""
+def phase_portable() -> tuple[int, int, int]:
+    """Returns the histogram's, the bucket scan's and the rank-and-scatter
+    kernel's launches."""
     rng = np.random.default_rng(SEED + 8)
     hist.KERNEL_LAUNCHES = 0
+    hist.SCAN_LAUNCHES = 0
     counting_engine.KERNEL_LAUNCHES = 0
     for label, method, run in portable_cases():
         before = hist.KERNEL_LAUNCHES
+        scan_before = hist.SCAN_LAUNCHES
         rs_before = counting_engine.KERNEL_LAUNCHES
         gathered = counting_engine.GATHERED
         secs, check = run(rng)
         launches = hist.KERNEL_LAUNCHES - before
+        scan_launches = hist.SCAN_LAUNCHES - scan_before
         rs_launches = counting_engine.KERNEL_LAUNCHES - rs_before
         gathered = counting_engine.GATHERED - gathered
         ok = check()
         log("8 portable-path", f"method={method} {label}: {secs * 1e3:.3f} ms "
             f"(host clock, synchronized) histogram launches={launches} "
+            f"bucket_scan launches={scan_launches} "
             f"rank_scatter launches={rs_launches} gathered={gathered} "
             f"{'bit-exact' if ok else 'MISMATCH'} vs numpy oracle")
         if method == "counting" and gathered:
@@ -1432,10 +1526,13 @@ def phase_portable() -> tuple[int, int]:
         torch.cuda.empty_cache()
         if not ok:
             raise AssertionError(f"portable path output wrong: {method} {label}")
-        if method == "counting" and (launches == 0 or rs_launches == 0):
-            raise AssertionError(f"counting path did not launch the histogram "
-                                 f"and rank_scatter kernels: {label}")
-    return hist.KERNEL_LAUNCHES, counting_engine.KERNEL_LAUNCHES
+        if method == "counting" and 0 in (launches, scan_launches,
+                                          rs_launches):
+            raise AssertionError(f"counting path did not launch the "
+                                 f"histogram, bucket_scan and rank_scatter "
+                                 f"kernels: {label}")
+    return (hist.KERNEL_LAUNCHES, hist.SCAN_LAUNCHES,
+            counting_engine.KERNEL_LAUNCHES)
 
 
 # ---------------------------------------------------------------------------
@@ -1509,6 +1606,99 @@ def phase_histogram_timing(x: torch.Tensor, card: str) -> dict:
             result = {"ms": ms, "plain_ms": plain_ms, "bytes": moved,
                       "library_ms": library_ms}
     return result
+
+
+def phase_bucket_scan_timing(x: torch.Tensor, card: str) -> dict:
+    """The bucket scan at the main path's shape (the sort_keys pass's counts
+    at 2**28 u32, width 8, tile 2048), int32 and int64 offsets, beside its
+    plain version, torch.cumsum of the bucket-major flat counts and its
+    bound; the earlier stage 2 (the bucket-major cumsum, then the copy that
+    rank_scatter made contiguous) and that copy alone. Returns the int32
+    numbers for the report."""
+    tile = counting_engine.DEFAULT_TILE
+    counts = hist.digit_histogram(x.view(torch.int32), 0, 8, tile)
+    counts = counts.view(1, *counts.shape)
+    flat = counts[0].t().contiguous().view(-1)  # the reference's counters
+    library_ms = cuda_ms(lambda: torch.cumsum(flat, 0, dtype=torch.int32), 20)
+    del flat
+    result = None
+    for idx_dt in (torch.int32, torch.int64):
+        ms = cuda_ms(lambda: hist.bucket_offsets(counts, tile, idx_dt), 20)
+        plain_ms = cuda_ms(
+            lambda: hist.bucket_offsets_reference(counts, tile, idx_dt), 5)
+        old = _old_stage2(counts, tile, idx_dt)
+        old_ms = cuda_ms(lambda: _old_stage2(counts, tile, idx_dt), 5)
+        copy_ms = cuda_ms(old.contiguous, 20)
+        if old.is_contiguous():
+            raise AssertionError("the earlier stage 2's offsets are "
+                                 "contiguous: the copy timed is no copy")
+        del old
+        alone = _kernels_alone(
+            lambda: hist.bucket_offsets(counts, tile, idx_dt), SCAN_KERNELS,
+            10)
+        moved = counts.numel() * (4 + idx_dt.itemsize)
+        bound_ms = moved / H100_BYTES_PER_S * 1e3
+        log("10 timing", f"bucket_scan u32 n=2**28 width=8 tile={tile} "
+            f"{str(idx_dt)[6:]}: the kernels alone (torch.profiler, median "
+            f"of 10) " + ", ".join(f"{k} {v:.6f} ms" for k, v in
+                                   alone.items())
+            + f", {sum(alone.values()):.6f} ms in all "
+            f"({100 * bound_ms / sum(alone.values()):.1f}% of the bound); "
+            f"card: {card}")
+        log("10 timing", f"bucket_scan u32 n=2**28 width=8 tile={tile} "
+            f"{str(idx_dt)[6:]}: kernel {ms:.6f} ms "
+            f"({moved / ms / 1e9:.4f} TB/s), plain version {plain_ms:.6f} "
+            f"ms, torch.cumsum of the bucket-major int32 counts "
+            f"{library_ms:.6f} ms, bound {bound_ms:.6f} ms ({moved} bytes "
+            f"at 3.35 TB/s; kernel at {100 * bound_ms / ms:.1f}% of it); "
+            f"the earlier stage 2 {old_ms:.6f} ms and the copy "
+            f"rank_scatter then made of it {copy_ms:.6f} ms; median of 20 "
+            f"(plain and earlier: 5), CUDA events; card: {card}")
+        if result is None:
+            result = {"ms": ms, "plain_ms": plain_ms, "bytes": moved,
+                      "ops": counts.numel(), "library_ms": library_ms}
+    del counts
+    torch.cuda.empty_cache()
+    return result
+
+
+#: the bucket scan's kernels, in launch order (rows of one chunk take the
+#: last alone)
+SCAN_KERNELS = ("chunk_sum_kernel", "column_scan_kernel", "chunk_write_kernel")
+
+
+def _kernels_alone(fn, names, reps: int) -> dict:
+    """Median device time in ms of each kernel of ``names`` that ``fn()``
+    launches, over ``reps`` calls, as ``torch.profiler`` traces them (the
+    kernels alone, without the host's enqueue or the gaps between them)."""
+    fn()
+    torch.cuda.synchronize()
+    with trace() as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = {name: [] for name in names}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CPU:
+            continue
+        for name in names:
+            if name in ev.name:
+                times[name].append(ev.time_range.elapsed_us() / 1e3)
+    missing = [name for name, t in times.items() if not t]
+    if missing:
+        raise AssertionError(f"the profiler traced no {missing}")
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def _old_stage2(counts: torch.Tensor, tile: int,
+                idx_dtype: torch.dtype) -> torch.Tensor:
+    """Stage 2 as the counting pass did it before the bucket-scan kernel:
+    each row's bucket-major cumsum plus the row's start, left in the
+    bucket-major strides that rank_scatter then copied to contiguous."""
+    R, Tr, _ = counts.shape
+    base = hist.exclusive_scan_bucket_major(counts.to(idx_dtype))
+    row0 = torch.arange(R, dtype=idx_dtype, device=counts.device) * (Tr * tile)
+    return base + row0.view(R, 1, 1)
 
 
 #: the rank-and-scatter kernel's integer operations per element at width
@@ -1650,13 +1840,21 @@ def phase_counting_timing(x: torch.Tensor, bitonic_ms, card: str) -> None:
                          dtype=torch.int64).to(torch.int32).view(torch.uint32)
     signed = x.view(torch.int32) ^ -2**31
     srt = torch.sort(signed, stable=True)
-    for what, call in [
-            ("sort_keys u32", lambda: thrs.sort_keys(x, method="counting")),
-            ("sort_pairs u32+u32", lambda: thrs.sort_pairs(
-                x, vals, method="counting"))]:
+
+    def no_cumsum(*args, **kwargs):
+        raise AssertionError("torch.cumsum on the counting path")
+
+    calls = [("sort_keys u32", lambda: thrs.sort_keys(x, method="counting")),
+             ("sort_pairs u32+u32", lambda: thrs.sort_pairs(
+                 x, vals, method="counting"))]
+    for what, call in calls:
         before = (hist.KERNEL_LAUNCHES, counting_engine.KERNEL_LAUNCHES,
-                  counting_engine.GATHERED)
-        got = call()
+                  counting_engine.GATHERED, hist.SCAN_LAUNCHES)
+        cumsum, torch.cumsum = torch.cumsum, no_cumsum
+        try:
+            got = call()
+        finally:
+            torch.cumsum = cumsum
         keys, v = got if isinstance(got, tuple) else (got, None)
         ok = torch.equal(keys.view(torch.int32), srt.values ^ -2**31)
         if v is not None:
@@ -1666,15 +1864,18 @@ def phase_counting_timing(x: torch.Tensor, bitonic_ms, card: str) -> None:
         log("10 timing", f"counting {what} n=2**28: "
             f"{'bit-exact' if ok else 'MISMATCH'} against torch.sort; "
             f"histogram launches={hist.KERNEL_LAUNCHES - before[0]} "
+            f"bucket_scan launches={hist.SCAN_LAUNCHES - before[3]} "
             f"rank_scatter launches="
             f"{counting_engine.KERNEL_LAUNCHES - before[1]} "
-            f"gathered={gathered}")
+            f"gathered={gathered}; no torch.cumsum")
         if not ok:
             raise AssertionError(f"counting {what} n=2**28 != torch.sort")
         if (hist.KERNEL_LAUNCHES == before[0]
+                or hist.SCAN_LAUNCHES == before[3]
                 or counting_engine.KERNEL_LAUNCHES == before[1]):
             raise AssertionError(f"counting {what} did not launch the "
-                                 f"histogram and rank_scatter kernels")
+                                 f"histogram, bucket_scan and rank_scatter "
+                                 f"kernels")
         if gathered:
             raise AssertionError(f"counting {what} gathered {gathered} "
                                  f"arrays")
@@ -1695,24 +1896,75 @@ def phase_counting_timing(x: torch.Tensor, bitonic_ms, card: str) -> None:
         bits, [x], 0, 32, mark=mark), card, "sort_keys u32")
     _stage_breakdown(lambda mark: counting_engine.sort_arrays_counting(
         bits, [x, vals], 0, 32, mark=mark), card, "sort_pairs u32+u32")
-    del bits, vals
+    with _earlier_stage2():
+        _stage_breakdown(lambda mark: counting_engine.sort_arrays_counting(
+            bits, [x], 0, 32, mark=mark), card,
+            "sort_keys u32 (earlier stage 2)")
+    del bits
+    # the row cells of phase 5 (rows of at most 128 tiles: one scan kernel)
+    rows = [x[:1 << 24].view(4096, 4096), x[:1 << 24].view(16384, 1024),
+            x[:4096 * 1040].view(4096, 1040)]
+    row_vals = vals[:1 << 24].view(16384, 1024)
+    scan_ab([(f"{what} n=2**28", call) for what, call in calls] + [
+        ("sort_keys u32 rows 4096x4096",
+         lambda: thrs.sort_keys(rows[0], method="counting")),
+        ("sort_pairs u32+u32 rows 16384x1024",
+         lambda: thrs.sort_pairs(rows[1], row_vals, method="counting")),
+        ("sort_keys u32 rows 4096x1040",
+         lambda: thrs.sort_keys(rows[2], method="counting"))], card)
+    del rows, row_vals
+    del vals
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def _earlier_stage2():
+    """Within the block, the counting pass takes stage 2 as it did before
+    the bucket-scan kernel (:func:`_old_stage2`)."""
+    fn, hist.bucket_offsets = hist.bucket_offsets, _old_stage2
+    try:
+        yield
+    finally:
+        hist.bucket_offsets = fn
+
+
+def scan_ab(calls, card: str) -> None:
+    """Each counting sort of ``calls``, (label, call) pairs, with stage 2
+    as before the bucket-scan kernel (earlier) and through it (kernel), in
+    one process, in turns: earlier, kernel, kernel, earlier; median of 5
+    each."""
+
+    def earlier(call):
+        with _earlier_stage2():
+            return cuda_ms(call, 5)
+
+    for what, call in calls:
+        t = [earlier(call), cuda_ms(call, 5), cuda_ms(call, 5), earlier(call)]
+        log("10 ab", f"counting {what}: earlier stage 2 / kernel / "
+            f"kernel / earlier stage 2 {t[0]:.3f} / {t[1]:.3f} / "
+            f"{t[2]:.3f} / {t[3]:.3f} ms; median of 5 each, CUDA events; "
+            f"card: {card}")
+
+
 def counting_only(parent_src=None) -> None:
-    """Phases 1, 2 (the counting kernels only), 7 (rank-and-scatter) and
-    10 alone, and the A/B against another rank_scatter.cu (bits and src
-    only, the C interface of the kernel before payloads) when
-    ``parent_src`` names one:
+    """Phases 1, 2 (the counting kernels only), 7 (bucket scan and
+    rank-and-scatter) and 10 alone, and the A/B against another
+    rank_scatter.cu (bits and src only, the C interface of the kernel
+    before payloads) when ``parent_src`` names one:
     ``python3 -c "import chip_smoke as c; c.counting_only('old.cu')"``."""
     card = card_line()
     print(card, flush=True)
-    phase_build(["digit_histogram", "rank_scatter"])
+    phase_build(["digit_histogram", "bucket_scan", "rank_scatter"])
+    x = bench_keys()
+    t0 = time.perf_counter()
+    err = phase_bucket_scan(x)
+    log("7 bucket-scan-vs-plain", f"all cases bit-equal in "
+        f"{time.perf_counter() - t0:.3f} s, max_abs_err={err}")
     t0 = time.perf_counter()
     err = phase_rank_scatter()
     log("7 rank-scatter-vs-plain", f"all cases bit-equal in "
         f"{time.perf_counter() - t0:.3f} s, max_abs_err={err}")
-    x = bench_keys()
+    phase_bucket_scan_timing(x, card)
     phase_rank_scatter_timing(x, card)
     phase_counting_timing(x, None, card)
     if parent_src:
@@ -2279,7 +2531,7 @@ def phase_harness(card: str) -> int:
     scaling at world size 1 and baseline_scale; then the counting engine
     through the bench at 2**28 and the drive. Each step raises on a
     failure. Returns the sweep kernel's launches of this path and the
-    rank-and-scatter kernel's of its counting steps."""
+    rank-and-scatter and bucket-scan kernels' of its counting steps."""
     from tinyhipradixsort_torch import bench
     from tinyhipradixsort_torch import entry as entry_mod
     from tinyhipradixsort_torch.benchmarks import full, scaling
@@ -2358,22 +2610,28 @@ def phase_harness(card: str) -> int:
     sweep_launches = be.KERNEL_LAUNCHES
 
     counting_engine.KERNEL_LAUNCHES = 0
+    hist.SCAN_LAUNCHES = 0
     line, _ = _step("bench --method counting --verify full (2**28)",
                     lambda out: bench.run(1 << 28, 5, "full", "counting",
                                           "cuda"))
     print(json.dumps(line), flush=True)
-    bench_launches = counting_engine.KERNEL_LAUNCHES
+    bench_launches = (counting_engine.KERNEL_LAUNCHES, hist.SCAN_LAUNCHES)
     torch.cuda.empty_cache()
     d, lines = _step("drive --method counting", lambda out: drive.drive(
         "cuda", "counting", 0, out=out))
     if d.fails:
         raise AssertionError("\n".join(lines))
     log("13 harness", f"rank_scatter launches: bench "
-        f"{bench_launches}, drive "
-        f"{counting_engine.KERNEL_LAUNCHES - bench_launches}")
-    if bench_launches == 0 or counting_engine.KERNEL_LAUNCHES == bench_launches:
-        raise AssertionError("a counting step did not launch rank_scatter")
-    return sweep_launches, counting_engine.KERNEL_LAUNCHES
+        f"{bench_launches[0]}, drive "
+        f"{counting_engine.KERNEL_LAUNCHES - bench_launches[0]}; "
+        f"bucket_scan launches: bench {bench_launches[1]}, drive "
+        f"{hist.SCAN_LAUNCHES - bench_launches[1]}")
+    if 0 in bench_launches or (counting_engine.KERNEL_LAUNCHES,
+                               hist.SCAN_LAUNCHES) == bench_launches:
+        raise AssertionError("a counting step did not launch rank_scatter "
+                             "and bucket_scan")
+    return (sweep_launches, counting_engine.KERNEL_LAUNCHES,
+            hist.SCAN_LAUNCHES)
 
 
 def main() -> int:
@@ -2423,21 +2681,28 @@ def main() -> int:
         f"{time.perf_counter() - t0:.3f} s, max_abs_err={hist_err}")
 
     t0 = time.perf_counter()
+    scan_err = phase_bucket_scan(x)
+    log("7 bucket-scan-vs-plain", f"all cases bit-equal in "
+        f"{time.perf_counter() - t0:.3f} s, max_abs_err={scan_err}")
+
+    t0 = time.perf_counter()
     rs_err = phase_rank_scatter()
     log("7 rank-scatter-vs-plain", f"all cases bit-equal in "
         f"{time.perf_counter() - t0:.3f} s, max_abs_err={rs_err}")
 
     t0 = time.perf_counter()
-    hist_launches, rs_launches = phase_portable()
+    hist_launches, scan_launches, rs_launches = phase_portable()
     log("8 portable-path", f"all cases bit-exact in "
         f"{time.perf_counter() - t0:.3f} s, histogram launches="
-        f"{hist_launches}, rank_scatter launches={rs_launches}")
+        f"{hist_launches}, bucket_scan launches={scan_launches}, "
+        f"rank_scatter launches={rs_launches}")
 
     t0 = time.perf_counter()
     g, s, g_launches, s_launches = phase_probes(card)
     log("9 probes", f"done in {time.perf_counter() - t0:.3f} s")
 
     h = phase_histogram_timing(x, card)
+    sc = phase_bucket_scan_timing(x, card)
     r = phase_rank_scatter_timing(x, card)
     phase_counting_timing(x, sort_ms, card)
     del x
@@ -2457,10 +2722,11 @@ def main() -> int:
             f"kernel launches on the partition main path={part_launches}")
 
         t0 = time.perf_counter()
-        harness_launches, rs_harness = phase_harness(card)
+        harness_launches, rs_harness, scan_harness = phase_harness(card)
         log("13 harness", f"done in {time.perf_counter() - t0:.3f} s, sweep "
             f"kernel launches on the harness path={harness_launches}, "
-            f"rank_scatter launches on its counting steps={rs_harness}")
+            f"rank_scatter launches on its counting steps={rs_harness}, "
+            f"bucket_scan launches={scan_harness}")
     finally:
         dist.destroy_process_group()
     log("done", f"{time.perf_counter() - t_all:.3f} s in all")
@@ -2500,6 +2766,13 @@ def main() -> int:
         entry("digit_histogram", hist_launches, hist_err, h["ms"],
               h["plain_ms"], bound(h["bytes"], 3 * (1 << 28)),
               h["library_ms"]),
+        # the sort_keys pass's scan at 2**28 (int32 offsets): the counts
+        # read once, the offsets written once, one add a count; its library
+        # call, torch.cumsum, scans the counts already in bucket-major
+        # order; launches: the counting paths of phases 8 and 13
+        entry("bucket_scan", scan_launches + scan_harness, scan_err,
+              sc["ms"], sc["plain_ms"], bound(sc["bytes"], sc["ops"]),
+              sc["library_ms"]),
         # the sort_keys pass at 2**28 u32 (the keys carried, no src; its
         # library call, torch.sort of the uint8 digits, computes src only);
         # launches: the counting paths of phases 8 and 13

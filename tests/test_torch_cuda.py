@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels on the card (the bitonic sweep, the digit
-histogram, the counting engine's rank-and-scatter with its payloads and
-the two probes):
+histogram, the counting engine's bucket scan and rank-and-scatter with its
+payloads, and the two probes):
 against their plain PyTorch versions,
 through the public entry points (the bitonic and the portable engines, a
 donated sort, the partition front-end, the distributed sort on a one-rank
@@ -297,14 +297,106 @@ def test_histogram_kernel_refuses_what_it_does_not_take(cuda):
                            30, 8)
 
 
+def _tile_counts(rng, R, Tr, width, tile, kind):
+    """(R, Tr, 2**width) int32 counts whose tiles each sum to ``tile``:
+    random cut points, or every element in one bucket."""
+    nb = 1 << width
+    if kind == "one":
+        counts = np.zeros((R, Tr, nb), np.int32)
+        counts[:, :, nb // 3] = tile
+        return counts
+    cuts = np.sort(rng.integers(0, tile, size=(R, Tr, nb - 1),
+                                endpoint=True), axis=-1)
+    edges = np.concatenate([np.zeros((R, Tr, 1), np.int64), cuts,
+                            np.full((R, Tr, 1), tile)], axis=-1)
+    return np.diff(edges, axis=-1).astype(np.int32)
+
+
+def _check_scan(cuda, R, Tr, width, tile, idx_dt, kind):
+    counts = torch.from_numpy(_tile_counts(
+        np.random.default_rng([R, Tr, width, tile]), R, Tr, width, tile,
+        kind)).to(cuda)
+    before = th.SCAN_LAUNCHES
+    got = th.bucket_offsets(counts, tile, idx_dt)
+    assert th.SCAN_LAUNCHES == before + 1 and got.is_cuda
+    want = th.bucket_offsets_reference(counts, tile, idx_dt)
+    assert got.dtype == idx_dt and tuple(got.shape) == (R, Tr, 1 << width)
+    # contiguous as it is written: rank_scatter's .contiguous() copies nothing
+    assert got.is_contiguous() and got.contiguous().data_ptr() == \
+        got.data_ptr()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("R", [1, 3, 64])
+@pytest.mark.parametrize("tile", [1024, 2048, 2176])
+@pytest.mark.parametrize("width", range(1, 9))
+def test_bucket_scan_kernel_matches_plain_version(cuda, width, tile, R):
+    # rows of 1030, 300 and 130 tiles: several chunks of 128 tiles, the
+    # last one short
+    Tr = {1: 1030, 3: 300, 64: 130}[R]
+    _check_scan(cuda, R, Tr, width, tile, torch.int32, "random")
+
+
+@pytest.mark.parametrize("R,Tr,width,idx_dt,kind", [
+    (1, 1030, 8, torch.int64, "random"),
+    (2, 127, 8, torch.int32, "random"),  # a row is one chunk (128 tiles)
+    (2, 128, 8, torch.int64, "random"),
+    (2, 129, 8, torch.int32, "random"),  # just above: a chunk of 1 tile
+    (5, 257, 3, torch.int64, "random"),
+    (64, 2, 8, torch.int32, "random"),
+    (1, 1, 1, torch.int32, "random"),
+    (3, 300, 8, torch.int64, "one"),     # one bucket; the others all zero
+    (3, 5, 8, torch.int32, "one"),
+    (1, 1 << 17, 8, torch.int32, "random"),  # 2**28 keys at tile 2048
+])
+def test_bucket_scan_kernel_on_chunk_edges_and_skew(cuda, R, Tr, width,
+                                                    idx_dt, kind):
+    _check_scan(cuda, R, Tr, width, 2048, idx_dt, kind)
+
+
+def test_bucket_scan_kernel_refuses_what_it_does_not_take(cuda):
+    before = th.SCAN_LAUNCHES
+    with pytest.raises(ValueError, match="width 1-8"):
+        th.bucket_offsets(torch.zeros((1, 2, 512), dtype=torch.int32,
+                                      device=cuda), 2048, torch.int32)
+    with pytest.raises(TypeError):
+        th.bucket_offsets(torch.zeros((1, 2, 256), dtype=torch.int64,
+                                      device=cuda), 2048, torch.int32)
+    with pytest.raises(ValueError, match="contiguous"):
+        th.bucket_offsets(torch.zeros((1, 256, 2), dtype=torch.int32,
+                                      device=cuda).transpose(1, 2), 2048,
+                          torch.int32)
+    assert th.SCAN_LAUNCHES == before
+
+
+@pytest.mark.parametrize("shape", [(300_000,), (3, 100_000)],
+                         ids=["one-row", "batched"])
+def test_counting_engine_scans_on_the_card(cuda, shape, monkeypatch):
+    # every pass takes its offsets from the kernel; nothing calls cumsum
+    def no_cumsum(*args, **kwargs):
+        raise AssertionError("torch.cumsum on the counting path")
+
+    rng = np.random.default_rng(len(shape))
+    x = rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    v = rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    xd, vd = torch.from_numpy(x).to(cuda), torch.from_numpy(v).to(cuda)
+    monkeypatch.setattr(torch, "cumsum", no_cumsum)
+    before = th.SCAN_LAUNCHES
+    k, got_v = tthrs.sort_pairs(xd, vd, method="counting")
+    assert th.SCAN_LAUNCHES == before + 4  # four 8-bit passes
+    perm = np.argsort(x, axis=-1, kind="stable")
+    np.testing.assert_array_equal(k.cpu().numpy(),
+                                  np.take_along_axis(x, perm, -1))
+    np.testing.assert_array_equal(got_v.cpu().numpy(),
+                                  np.take_along_axis(v, perm, -1))
+
+
 def _stage2(bits, shift, width, tile, R, idx_dt):
-    """The counting engine's stage 2 for R rows of whole tiles: the plain
-    histogram's counts, each row's bucket-major scan, the row offsets."""
+    """The counting engine's stage 2 for R rows of whole tiles by the plain
+    versions (histogram and bucket scan)."""
     counts = th.digit_histogram_reference(bits, shift, width, tile)
-    Tr, nb = counts.shape[0] // R, counts.shape[1]
-    base = th.exclusive_scan_bucket_major(counts.view(R, Tr, nb).to(idx_dt))
-    row0 = torch.arange(R, dtype=idx_dt, device=bits.device) * (Tr * tile)
-    return base + row0.view(R, 1, 1)
+    return th.bucket_offsets_reference(
+        counts.view(R, counts.shape[0] // R, counts.shape[1]), tile, idx_dt)
 
 
 @pytest.mark.parametrize("n,wide,shift,width,tile,R,idx_dt,kind", [

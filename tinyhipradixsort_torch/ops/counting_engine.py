@@ -11,7 +11,10 @@ kernel.cu:73-103/136-204/206-429):
 2. bucket-major exclusive scan of the ``[B, T]`` counters
    (<- prefixSumExclusiveInplace; the layout ``bucket * numTiles + tile`` is
    the reference's, kernel.cu:97, so a flat exclusive scan gives each
-   (bucket, tile) its global base offset);
+   (bucket, tile) its global base offset), :func:`histogram.bucket_offsets`:
+   on CUDA tensors the hand-written kernel ``csrc/bucket_scan.cu``, which
+   writes the offsets in the tile-major layout stage 3 reads, on CPU
+   tensors its plain version;
 3. stable rank within the tile + scatter (<- reorderKey/reorderKeyPair),
    :func:`rank_scatter`: on CUDA tensors the hand-written kernel
    ``csrc/rank_scatter.cu`` (per-warp digit masks and counters, the
@@ -258,11 +261,8 @@ def _pass(bits, shift: int, width: int, counts, tile: int, idx_dt, payloads,
     """One pass of R rows of Tr tiles: ``bits`` flat, its per-tile counts
     ``(R, Tr, 2**width)`` -> :func:`rank_scatter`'s ``(bits_out, src,
     moved)``, ``src`` indexing the flat rows with ``out = x[src]``."""
-    R, Tr, _ = counts.shape
     # stage 2: each row's bucket-major exclusive scan, offset to its range
-    base = histogram.exclusive_scan_bucket_major(counts.to(idx_dt))
-    row0 = torch.arange(R, dtype=idx_dt, device=bits.device) * (Tr * tile)
-    base = base + row0.view(R, 1, 1)
+    base = histogram.bucket_offsets(counts, tile, idx_dt)
     mark("scan")
     out = rank_scatter(bits, shift, width, base, tile, idx_dt, payloads,
                        want_src)
@@ -286,9 +286,11 @@ def sort_arrays_counting(bits, arrays, start_bit: int, end_bit: int,
     ``bits`` (``(n,)``, or ``(B, n)`` rows sorted each on its own).
 
     ``tile`` must be a histogram tile (:func:`histogram.round_tile` leaves it
-    as it is). ``mark(stage)``, when given, is called after the padding
-    (``"pad"``) and after each stage of each pass (``"histogram"``,
-    ``"scan"``, ``"rank_scatter"`` and ``"gathers"``), for timing.
+    as it is), and ``radix_bits`` at most :data:`histogram.SCAN_MAX_WIDTH`
+    (the reference's 8). ``mark(stage)``, when given, is called after the
+    padding (``"pad"``) and after each stage of each pass
+    (``"histogram"``, ``"scan"``, ``"rank_scatter"`` and ``"gathers"``),
+    for timing.
 
     Up to :data:`MAX_PAYLOADS` arrays ride through :func:`rank_scatter` as
     payloads (:func:`carried`); ``src`` is asked for only when an array is

@@ -6,7 +6,10 @@ shared-memory histogram with atomics. CUDA tensors go through the
 hand-written kernel ``csrc/digit_histogram.cu``, which does just that;
 CPU tensors through :func:`digit_histogram_reference`, its plain PyTorch
 version. The counting engine (:mod:`.counting_engine`) takes its stage-1
-counts from here.
+counts from here, and its stage-2 offsets from :func:`bucket_offsets`
+(the reference's ``prefixSumExclusiveInplace``, kernel.cu:136-204): on CUDA
+tensors the hand-written kernel ``csrc/bucket_scan.cu``, on CPU tensors
+:func:`bucket_offsets_reference`.
 
 Outputs match the reference's layout transposed: ``(num_tiles, 2**width)``
 (the reference stores bucket-major, kernel.cu:97; ``counts.T.reshape(-1)``
@@ -29,6 +32,11 @@ MAX_TILE = 1 << 22
 #: launches of the CUDA histogram kernel in this process (counted only where
 #: the kernel is launched)
 KERNEL_LAUNCHES = 0
+#: launches of the CUDA bucket-scan kernel (stage 2) in this process
+#: (counted only where the kernel is launched)
+SCAN_LAUNCHES = 0
+#: widest digit :func:`bucket_offsets` takes (the reference's 8 bits)
+SCAN_MAX_WIDTH = 8
 
 
 def round_tile(tile: int) -> int:
@@ -143,3 +151,101 @@ def exclusive_scan_bucket_major(counts: torch.Tensor) -> torch.Tensor:
     ex = torch.cumsum(flat, dim=-1, dtype=counts.dtype) - flat
     return ex.view(*counts.shape[:-2], counts.shape[-1],
                    counts.shape[-2]).transpose(-1, -2)
+
+
+def _check_counts(counts: torch.Tensor, tile: int,
+                  idx_dtype: torch.dtype) -> None:
+    if counts.dtype != torch.int32 or counts.ndim != 3:
+        raise TypeError("bucket_offsets takes (rows, tiles, 2**width) int32 "
+                        f"counts, got {counts.dtype} of shape "
+                        f"{tuple(counts.shape)}")
+    if not counts.is_contiguous():
+        raise ValueError("bucket_offsets takes contiguous counts")
+    nb = counts.shape[2]
+    if nb < 2 or nb & (nb - 1) or nb > 1 << SCAN_MAX_WIDTH:
+        raise ValueError(f"bucket_offsets takes 2**width buckets with width "
+                         f"1-{SCAN_MAX_WIDTH}, got {nb}")
+    if idx_dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"bucket_offsets writes int32 or int64, not "
+                        f"{idx_dtype}")
+    R, Tr = counts.shape[:2]
+    if tile < 1 or (idx_dtype == torch.int32 and R * Tr * tile >= 2**31):
+        raise ValueError(f"{R} rows of {Tr} tiles of {tile} do not take "
+                         f"{idx_dtype} offsets")
+
+
+def bucket_offsets_reference(counts: torch.Tensor, tile: int,
+                             idx_dtype: torch.dtype) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: each row's
+    :func:`exclusive_scan_bucket_major` in ``idx_dtype``, plus the row's
+    start, made contiguous."""
+    _check_counts(counts, tile, idx_dtype)
+    R, Tr, _ = counts.shape
+    base = exclusive_scan_bucket_major(counts.to(idx_dtype))
+    row0 = torch.arange(R, dtype=idx_dtype, device=counts.device) * (Tr * tile)
+    return (base + row0.view(R, 1, 1)).contiguous()
+
+
+@functools.cache
+def _scan_fns():
+    lib = cuda_lib.load("bucket_scan")
+    scratch = lib.thrs_bucket_scan_scratch
+    scratch.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
+    scratch.restype = ctypes.c_longlong
+    fn = lib.thrs_bucket_scan
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn, scratch
+
+
+def _launch_bucket_scan(counts: torch.Tensor, tile: int,
+                        idx_dtype: torch.dtype) -> torch.Tensor:
+    global SCAN_LAUNCHES
+    _check_counts(counts, tile, idx_dtype)
+    R, Tr, nb = counts.shape
+    out = torch.empty((R, Tr, nb), dtype=idx_dtype, device=counts.device)
+    if out.numel() == 0:
+        return out
+    width = nb.bit_length() - 1
+    fn, scratch_words = _scan_fns()
+    words = scratch_words(R, Tr, width)
+    scratch = (torch.empty(words, dtype=torch.int64, device=counts.device)
+               if words else None)
+    with torch.cuda.device(counts.device):
+        stream = torch.cuda.current_stream(counts.device).cuda_stream
+        rc = fn(counts.data_ptr(), R, Tr, width, tile, out.data_ptr(),
+                idx_dtype.itemsize,
+                scratch.data_ptr() if scratch is not None else None, stream)
+    if rc != 0:
+        raise RuntimeError(f"bucket scan kernel launch failed: CUDA error "
+                           f"{rc} (rows={R} tiles={Tr} width={width} "
+                           f"tile={tile})")
+    SCAN_LAUNCHES += 1
+    return out
+
+
+def bucket_offsets(counts: torch.Tensor, tile: int,
+                   idx_dtype: torch.dtype) -> torch.Tensor:
+    """Stage 2 of the counting engine's pass: the global start of each
+    (tile, bucket) of ``counts`` in the pass's output.
+
+    counts: stage 1's ``(rows, tiles per row, 2**width)`` int32, contiguous,
+    with ``width <= SCAN_MAX_WIDTH``; tile: the elements a tile. Returns a
+    fresh contiguous ``(rows, tiles per row, 2**width)`` tensor in
+    ``idx_dtype`` (int32, where ``rows * tiles * tile < 2**31``, or int64):
+    ``out[r, t, b] = r * tiles * tile + counts[r, :, :b].sum() +
+    counts[r, :t, b].sum()``, each row's bucket-major exclusive scan plus
+    the row's start, in the layout :func:`.counting_engine.rank_scatter`
+    reads.
+
+    CUDA tensors go through the kernel (built at first use), CPU tensors
+    through :func:`bucket_offsets_reference`; any other device raises.
+    """
+    if common.on_cuda(counts):
+        return _launch_bucket_scan(counts, tile, idx_dtype)
+    if counts.device.type != "cpu":
+        raise ValueError(f"no bucket_offsets implementation for "
+                         f"{counts.device}")
+    return bucket_offsets_reference(counts, tile, idx_dtype)
