@@ -55,12 +55,20 @@ Phases, one output line each (time, kernel launches, result):
    through ``digit_histogram_reference`` (u32 at 2**20 and 2**28, shifts
    0/8/16/24, tiles 8192 and 2048, widths 1, 2, 5 and 12, an odd tile, an n
    that is no tile multiple, u64 with shift 40), required bit-equal; then
-   ``bucket_offsets`` through the bucket-scan kernel and through
+   ``digit_histogram_runs`` (the counts and each run's column sums, what
+   the counting engine launches) through its kernel and through
+   ``digit_histogram_runs_reference`` (the sort_keys pass at 2**28; widths
+   1-8 on 3 rows with a short last run; rows of 127, 128 and 129 tiles
+   around the run of 128; u64 bits; ragged n; every digit the same; the
+   row cells' 4096 and 16384 rows; tiles of 3072, 20480, 65536 and 2**22
+   split between the CTAs of a cluster), counts and run sums bit-equal;
+   then ``bucket_offsets`` through the bucket-scan kernel on both routes
+   (given the run sums, and on the counts alone) and through
    ``bucket_offsets_reference`` (the sort_keys pass's counts at 2**28,
    width 8, tile 2048, int32 and int64 offsets; widths 1-8 x tiles 1024,
    2048 and 2176 x 1, 3 and 64 rows; rows just below, at and above the
-   kernel's chunk of 128 tiles; int64 offsets; every count in one bucket),
-   required bit-equal and contiguous; then
+   run of 128 tiles; int64 offsets; every count in one bucket), required
+   bit-equal and contiguous; then
    ``rank_scatter`` through the kernel and through
    ``rank_scatter_reference`` (2**28 u32 at width 8 and tile 2048: the
    sort_keys pass with the keys carried, the sort_pairs pass with two
@@ -81,11 +89,13 @@ Phases, one output line each (time, kernel launches, result):
    rate shape (2**18 rounds, which the kernel report carries), each beside
    its bound and its share of it;
 10. timing of the new kernels and engine: the histogram at 2**28 beside its
-   plain version, torch.bincount and its bound; the bucket scan at 2**28
-   (width 8, tile 2048; int32 and int64 offsets) beside its plain version,
-   torch.cumsum of the bucket-major counts and its bound, with the copy
-   that made the earlier stage 2's offsets contiguous timed alone; the
-   rank-and-scatter kernel
+   plain version, torch.bincount and its bound, and with its run sums in
+   turns with it (a call and the kernel alone); the bucket scan at 2**28
+   (width 8, tile 2048; int32 and int64 offsets) given the run sums and
+   without, a call and each route's kernels alone, beside its plain
+   version, torch.cumsum of the bucket-major counts and its bound, with
+   the copy that made the earlier stage 2's offsets contiguous timed
+   alone; the rank-and-scatter kernel
    on one pass at 2**28 (width 8, tile 2048) for each set of output
    streams (``STREAM_ROWS``: bits; + src; + a u32 payload, the sort_keys
    pass; + src + a u32 payload; + a 16-byte payload; u64 bits + a u64
@@ -94,7 +104,8 @@ Phases, one output line each (time, kernel launches, result):
    of it, three of them beside the plain version and torch.sort of the
    uint8 digits; counting sort_keys u32 and sort_pairs u32+u32 at 2**28
    (checked against torch.sort, required to launch the three counting
-   kernels, to call no torch.cumsum and to gather nothing:
+   kernels, stage 2 on the run sums with no run_sum_kernel in the
+   profiler's trace, to call no torch.cumsum and to gather nothing:
    ``counting_engine.GATHERED``) beside torch.sort and the bitonic
    sort_keys, each with its per-stage breakdown, and each beside the same
    sort with stage 2 done as before the bucket-scan kernel (``scan_ab``:
@@ -103,7 +114,10 @@ Phases, one output line each (time, kernel launches, result):
    ``counting_only`` runs phases 2 (the counting kernels), 7 and 10 alone,
    and, given
    another rank_scatter.cu with the bits-and-src C interface of the
-   kernel before payloads, the A/B against it (``rank_scatter_ab``);
+   kernel before payloads, the A/B against it (``rank_scatter_ab``), and,
+   given another bucket_scan.cu with the C interface before run sums, the
+   A/B of stage 2, of stages 1-2 and of the counting sorts against it in
+   turns (``scan_parent_ab``);
 11. the distributed sort on a one-rank NCCL group (NCCL allows one rank per
    card): psort_keys ascending, descending and with the two-word index
    (_force_wide), psort_pairs with a u32 payload, psort_indices with both
@@ -1193,6 +1207,70 @@ def phase_histogram() -> int:
     return worst
 
 
+def histogram_runs_cases():
+    """(n, wide, shift, width, tile, rows, kind) for digit_histogram_runs;
+    kind "random" or "one" (every element's digit the same)."""
+    w = 2048
+    cases = [(1 << 28, False, 0, 8, w, 1, "random")]  # the sort_keys pass
+    cases += [(3 * 300 * w, False, 4, width, w, 3, "random")  # short last run
+              for width in range(1, 9)]
+    # rows of 127, 128 and 129 tiles around the run of 128 tiles
+    cases += [(2 * tiles * w, False, 8, 8, w, 2, "random")
+              for tiles in (127, 128, 129)]
+    cases += [(2 * 200 * w, True, 40, 8, w, 2, "random"),  # u64 bits
+              ((1 << 20) + 777, False, 0, 8, w, 1, "random"),  # ragged n
+              ((1 << 20) + 777, True, 56, 8, w, 1, "random"),
+              (1 << 24, False, 0, 8, w, 1, "one"),
+              (4096 * 2 * w, False, 0, 8, w, 4096, "random"),  # rows cells
+              (16384 * w, False, 0, 8, w, 16384, "random"),
+              (3 * 1000 * 3072, False, 16, 8, 3072, 3, "random"),
+              # tiles split between the CTAs of a cluster (16384 elements
+              # a CTA at least): 20480 and 65536 straddle two, 2**22 spans 8
+              (1 << 24, False, 0, 8, 20480, 1, "random"),
+              ((1 << 24) + 3000, False, 0, 8, 65536, 1, "random"),
+              (1 << 25, True, 8, 8, 1 << 22, 2, "random"),
+              ((1 << 23) + 5, False, 24, 3, 1 << 22, 1, "random")]
+    return cases
+
+
+def phase_histogram_runs() -> int:
+    """digit_histogram_runs through its kernel and through its plain
+    version: the counts and the run sums bit-equal."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 72)
+    worst = 0
+    for n, wide, shift, width, tile, R, kind in histogram_runs_cases():
+        bits = (torch.full((n,), 0x5A5A5A5A, dtype=torch.int32, device="cuda")
+                if kind == "one" else _random_bits(n, wide, gen))
+        T = -(-n // hist.round_tile(tile))
+        before = hist.RUN_LAUNCHES
+        counts, sums = hist.digit_histogram_runs(bits, shift, width, tile,
+                                                 T // R)
+        if hist.RUN_LAUNCHES != before + 1:
+            raise AssertionError("digit_histogram_runs did not launch its "
+                                 "kernel")
+        want_c, want_s = hist.digit_histogram_runs_reference(
+            bits, shift, width, tile, T // R)
+        torch.cuda.synchronize()
+        err = max(int((counts.long() - want_c.long()).abs().max()),
+                  int((sums - want_s).abs().max()))
+        ok = torch.equal(counts, want_c) and torch.equal(sums, want_s)
+        log("7 histogram-runs-vs-plain",
+            f"{'u64' if wide else 'u32'} n={n} shift={shift} width={width} "
+            f"tile={tile} rows={R} {kind}: counts {tuple(counts.shape)}, run "
+            f"sums {tuple(sums.shape)} (runs of "
+            f"{hist.run_tiles(T // R, hist.round_tile(tile))} tiles) "
+            f"max_abs_err={err} {'bit-equal' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"run-sum histogram kernel != plain version "
+                                 f"(n={n} shift={shift} width={width} "
+                                 f"tile={tile} rows={R} {kind})")
+        worst = max(worst, err)
+        del bits, counts, sums, want_c, want_s
+    torch.cuda.empty_cache()
+    return worst
+
+
 def _stage2(bits: torch.Tensor, shift: int, width: int, tile: int, rows: int,
             idx_dt: torch.dtype) -> torch.Tensor:
     """The counting engine's stage 2 for ``rows`` rows of whole tiles by
@@ -1222,7 +1300,8 @@ def _tile_counts(rows: int, Tr: int, width: int, tile: int, kind: str,
 
 def bucket_scan_cases():
     """(rows, tiles per row, width, tile, idx_dt, kind); kind "keys" is
-    the histogram of the bench keys (the sort_keys pass at 2**28)."""
+    the histogram of the bench keys (the sort_keys pass at 2**28), with
+    its run sums from the kernel."""
     i32, i64 = torch.int32, torch.int64
     cases = [(1, (1 << 28) // 2048, 8, 2048, i32, "keys"),
              (1, (1 << 28) // 2048, 8, 2048, i64, "keys")]
@@ -1242,36 +1321,46 @@ def bucket_scan_cases():
 
 
 def phase_bucket_scan(x: torch.Tensor) -> int:
-    """The bucket-scan kernel against its plain version, bit-equal and
+    """The bucket-scan kernel against its plain version on both routes
+    (given the run sums: the counts read once; and without), bit-equal and
     contiguous as written. Returns the largest absolute difference (0)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 71)
     worst = 0
     for R, Tr, width, tile, idx_dt, kind in bucket_scan_cases():
         if kind == "keys":
-            counts = hist.digit_histogram(x.view(torch.int32), 0, width,
-                                          tile).view(R, Tr, 1 << width)
+            counts, sums = hist.digit_histogram_runs(x.view(torch.int32), 0,
+                                                     width, tile, Tr)
+            counts = counts.view(R, Tr, 1 << width)
         else:
             counts = _tile_counts(R, Tr, width, tile, kind, gen)
-        before = hist.SCAN_LAUNCHES
-        got = hist.bucket_offsets(counts, tile, idx_dt)
-        if hist.SCAN_LAUNCHES != before + 1:
-            raise AssertionError("bucket_offsets did not launch its kernel")
+            sums = hist.run_sums_reference(counts, tile)
         want = hist.bucket_offsets_reference(counts, tile, idx_dt)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        ok = (got.dtype == idx_dt and got.is_contiguous()
-              and torch.equal(got, want))
-        log("7 bucket-scan-vs-plain",
-            f"rows={R} tiles={Tr} width={width} tile={tile} "
-            f"{str(idx_dt)[6:]} {kind}: max_abs_err={err} "
-            f"{'bit-equal' if ok else 'MISMATCH'}")
-        if not ok:
-            raise AssertionError(f"bucket scan kernel != plain version "
-                                 f"(rows={R} tiles={Tr} width={width} "
-                                 f"tile={tile} {idx_dt} {kind})")
-        worst = max(worst, err)
-        del counts, got, want
+        for route in ("run sums", "counts alone"):
+            before = (hist.SCAN_LAUNCHES, hist.SCAN_SUM_WALKS)
+            got = hist.bucket_offsets(
+                counts, tile, idx_dt,
+                run_sums=sums if route == "run sums" else None)
+            walks = hist.SCAN_SUM_WALKS - before[1]
+            if (hist.SCAN_LAUNCHES != before[0] + 1 or walks != (
+                    route == "counts alone" and Tr > hist.run_tiles(Tr,
+                                                                    tile))):
+                raise AssertionError(f"bucket_offsets ({route}) did not "
+                                     f"launch its kernel's route")
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            ok = (got.dtype == idx_dt and got.is_contiguous()
+                  and torch.equal(got, want))
+            log("7 bucket-scan-vs-plain",
+                f"rows={R} tiles={Tr} width={width} tile={tile} "
+                f"{str(idx_dt)[6:]} {kind}, {route}: max_abs_err={err} "
+                f"{'bit-equal' if ok else 'MISMATCH'}")
+            if not ok:
+                raise AssertionError(f"bucket scan kernel != plain version "
+                                     f"(rows={R} tiles={Tr} width={width} "
+                                     f"tile={tile} {idx_dt} {kind}, {route})")
+            worst = max(worst, err)
+        del counts, sums, got, want
     torch.cuda.empty_cache()
     return worst
 
@@ -1507,6 +1596,7 @@ def phase_portable() -> tuple[int, int, int]:
     for label, method, run in portable_cases():
         before = hist.KERNEL_LAUNCHES
         scan_before = hist.SCAN_LAUNCHES
+        walks = hist.SCAN_SUM_WALKS
         rs_before = counting_engine.KERNEL_LAUNCHES
         gathered = counting_engine.GATHERED
         secs, check = run(rng)
@@ -1523,6 +1613,9 @@ def phase_portable() -> tuple[int, int, int]:
         if method == "counting" and gathered:
             raise AssertionError(f"the counting engine gathered {gathered} "
                                  f"arrays it should carry: {label}")
+        if hist.SCAN_SUM_WALKS != walks:
+            raise AssertionError(f"the counting engine launched a summing "
+                                 f"walk: {label}")
         torch.cuda.empty_cache()
         if not ok:
             raise AssertionError(f"portable path output wrong: {method} {label}")
@@ -1579,10 +1672,43 @@ def phase_probes(card: str) -> tuple[dict, dict, int, int]:
 
 def phase_histogram_timing(x: torch.Tensor, card: str) -> dict:
     """The histogram at 2**28 u32, width 8, at the counting engine's tile
-    (2048, the main path's shape) and the default tile (8192)."""
+    (2048, the main path's shape) and the default tile (8192); at 2048 also
+    with its run sums (digit_histogram_runs, what the counting engine
+    launches), a call and the kernel alone in turns with digit_histogram.
+    Returns the run-sum kernel's numbers for the report."""
     bits = x.view(torch.int32)
     n = bits.shape[0]
-    result = None
+    tile = counting_engine.DEFAULT_TILE
+    T = n // tile
+
+    def plain():
+        return hist.digit_histogram(bits, 0, 8, tile)
+
+    def runs():
+        return hist.digit_histogram_runs(bits, 0, 8, tile, T)
+
+    calls = [cuda_ms(f, 10) for f in (plain, runs, runs, plain)]
+    alone = [_kernels_alone(f, (name,), 10)[name] for f, name in (
+        (plain, "digit_histogram_smem_kernel"),
+        (runs, "digit_histogram_runs_kernel"),
+        (runs, "digit_histogram_runs_kernel"),
+        (plain, "digit_histogram_smem_kernel"))]
+    runs_plain_ms = cuda_ms(
+        lambda: hist.digit_histogram_runs_reference(bits, 0, 8, tile, T), 5)
+    sums_numel = hist.digit_histogram_runs(bits, 0, 8, tile, T)[1].numel()
+    moved = 4 * n + 4 * T * 256 + 8 * sums_numel
+    bound_ms = moved / H100_BYTES_PER_S * 1e3
+    log("10 timing", f"digit_histogram_runs u32 n=2**28 width=8 tile={tile} "
+        f"(run sums {sums_numel} int64): digit_histogram / runs / runs / "
+        f"digit_histogram a call {' / '.join(f'{t:.6f}' for t in calls)} ms "
+        f"(median of 10, CUDA events), the kernel alone "
+        f"{' / '.join(f'{t:.6f}' for t in alone)} ms (torch.profiler, "
+        f"median of 10); plain version {runs_plain_ms:.6f} ms; bound "
+        f"{bound_ms:.6f} ms ({moved} bytes at 3.35 TB/s; a call at "
+        f"{100 * bound_ms / statistics.median(calls[1:3]):.1f}% of it); "
+        f"card: {card}")
+    result = {"ms": statistics.median(calls[1:3]), "plain_ms": runs_plain_ms,
+              "bytes": moved}
     for tile in (counting_engine.DEFAULT_TILE, hist.DEFAULT_TILE):
         ms = cuda_ms(lambda: hist.digit_histogram(bits, 0, 8, tile), 5)
         plain_ms = cuda_ms(
@@ -1602,28 +1728,41 @@ def phase_histogram_timing(x: torch.Tensor, card: str) -> dict:
             f"ms ({moved} bytes at 3.35 TB/s; kernel at "
             f"{100 * bound_ms / ms:.1f}% of it); median of 5, CUDA events; "
             f"card: {card}")
-        if result is None:
-            result = {"ms": ms, "plain_ms": plain_ms, "bytes": moved,
-                      "library_ms": library_ms}
+        result.setdefault("library_ms", library_ms)
     return result
 
 
 def phase_bucket_scan_timing(x: torch.Tensor, card: str) -> dict:
     """The bucket scan at the main path's shape (the sort_keys pass's counts
-    at 2**28 u32, width 8, tile 2048), int32 and int64 offsets, beside its
-    plain version, torch.cumsum of the bucket-major flat counts and its
-    bound; the earlier stage 2 (the bucket-major cumsum, then the copy that
-    rank_scatter made contiguous) and that copy alone. Returns the int32
-    numbers for the report."""
+    at 2**28 u32, width 8, tile 2048), int32 and int64 offsets: a call
+    given stage 1's run sums (the engine's route) and without them, each
+    route's kernels alone, beside its plain version, torch.cumsum of the
+    bucket-major flat counts and its bound; the earlier stage 2 (the
+    bucket-major cumsum, then the copy that rank_scatter made contiguous)
+    and that copy alone. Returns the engine route's int32 numbers for the
+    report. The kernel scans the run sums in place, so the timed calls
+    after the first scan sums already scanned: the work and the bytes do
+    not depend on their values (the sums wrap as unsigned)."""
     tile = counting_engine.DEFAULT_TILE
-    counts = hist.digit_histogram(x.view(torch.int32), 0, 8, tile)
+    counts, sums = hist.digit_histogram_runs(x.view(torch.int32), 0, 8, tile,
+                                             x.shape[0] // tile)
     counts = counts.view(1, *counts.shape)
+    fresh = sums.clone()
     flat = counts[0].t().contiguous().view(-1)  # the reference's counters
     library_ms = cuda_ms(lambda: torch.cumsum(flat, 0, dtype=torch.int32), 20)
     del flat
     result = None
     for idx_dt in (torch.int32, torch.int64):
-        ms = cuda_ms(lambda: hist.bucket_offsets(counts, tile, idx_dt), 20)
+        want = hist.bucket_offsets_reference(counts, tile, idx_dt)
+        sums.copy_(fresh)
+        if not torch.equal(hist.bucket_offsets(counts, tile, idx_dt,
+                                               run_sums=sums), want):
+            raise AssertionError("bucket_offsets with run sums != plain")
+        del want
+        ms = cuda_ms(lambda: hist.bucket_offsets(counts, tile, idx_dt,
+                                                 run_sums=sums), 20)
+        bare_ms = cuda_ms(lambda: hist.bucket_offsets(counts, tile, idx_dt),
+                          20)
         plain_ms = cuda_ms(
             lambda: hist.bucket_offsets_reference(counts, tile, idx_dt), 5)
         old = _old_stage2(counts, tile, idx_dt)
@@ -1633,38 +1772,43 @@ def phase_bucket_scan_timing(x: torch.Tensor, card: str) -> dict:
             raise AssertionError("the earlier stage 2's offsets are "
                                  "contiguous: the copy timed is no copy")
         del old
-        alone = _kernels_alone(
-            lambda: hist.bucket_offsets(counts, tile, idx_dt), SCAN_KERNELS,
-            10)
-        moved = counts.numel() * (4 + idx_dt.itemsize)
+        alone = _kernels_alone(lambda: hist.bucket_offsets(
+            counts, tile, idx_dt, run_sums=sums), SCAN_KERNELS, 10)
+        bare = _kernels_alone(lambda: hist.bucket_offsets(
+            counts, tile, idx_dt), SCAN_BARE_KERNELS, 10)
+        moved = counts.numel() * (4 + idx_dt.itemsize) + 8 * sums.numel()
         bound_ms = moved / H100_BYTES_PER_S * 1e3
+        for route, times in (("run sums", alone), ("counts alone", bare)):
+            log("10 timing", f"bucket_scan u32 n=2**28 width=8 tile={tile} "
+                f"{str(idx_dt)[6:]}, {route}: the kernels alone "
+                f"(torch.profiler, median of 10) "
+                + ", ".join(f"{k} {v:.6f} ms" for k, v in times.items())
+                + f", {sum(times.values()):.6f} ms in all "
+                f"({100 * bound_ms / sum(times.values()):.1f}% of the "
+                f"bound); card: {card}")
         log("10 timing", f"bucket_scan u32 n=2**28 width=8 tile={tile} "
-            f"{str(idx_dt)[6:]}: the kernels alone (torch.profiler, median "
-            f"of 10) " + ", ".join(f"{k} {v:.6f} ms" for k, v in
-                                   alone.items())
-            + f", {sum(alone.values()):.6f} ms in all "
-            f"({100 * bound_ms / sum(alone.values()):.1f}% of the bound); "
-            f"card: {card}")
-        log("10 timing", f"bucket_scan u32 n=2**28 width=8 tile={tile} "
-            f"{str(idx_dt)[6:]}: kernel {ms:.6f} ms "
-            f"({moved / ms / 1e9:.4f} TB/s), plain version {plain_ms:.6f} "
-            f"ms, torch.cumsum of the bucket-major int32 counts "
-            f"{library_ms:.6f} ms, bound {bound_ms:.6f} ms ({moved} bytes "
-            f"at 3.35 TB/s; kernel at {100 * bound_ms / ms:.1f}% of it); "
-            f"the earlier stage 2 {old_ms:.6f} ms and the copy "
-            f"rank_scatter then made of it {copy_ms:.6f} ms; median of 20 "
-            f"(plain and earlier: 5), CUDA events; card: {card}")
+            f"{str(idx_dt)[6:]}: a call with the run sums {ms:.6f} ms "
+            f"({moved / ms / 1e9:.4f} TB/s), without {bare_ms:.6f} ms, plain "
+            f"version {plain_ms:.6f} ms, torch.cumsum of the bucket-major "
+            f"int32 counts {library_ms:.6f} ms, bound {bound_ms:.6f} ms "
+            f"({moved} bytes: counts and run sums read, offsets written, at "
+            f"3.35 TB/s; a call with the run sums at "
+            f"{100 * bound_ms / ms:.1f}% of it); the earlier stage 2 "
+            f"{old_ms:.6f} ms and the copy rank_scatter then made of it "
+            f"{copy_ms:.6f} ms; median of 20 (plain and earlier: 5), CUDA "
+            f"events; card: {card}")
         if result is None:
             result = {"ms": ms, "plain_ms": plain_ms, "bytes": moved,
                       "ops": counts.numel(), "library_ms": library_ms}
-    del counts
+    del counts, sums, fresh
     torch.cuda.empty_cache()
     return result
 
 
-#: the bucket scan's kernels, in launch order (rows of one chunk take the
-#: last alone)
-SCAN_KERNELS = ("chunk_sum_kernel", "column_scan_kernel", "chunk_write_kernel")
+#: the bucket scan's kernels given the run sums, in launch order (rows of
+#: one run take the last alone), and without them
+SCAN_KERNELS = ("run_scan_kernel", "run_write_kernel")
+SCAN_BARE_KERNELS = ("run_sum_kernel", "run_scan_kernel", "run_write_kernel")
 
 
 def _kernels_alone(fn, names, reps: int) -> dict:
@@ -1690,8 +1834,8 @@ def _kernels_alone(fn, names, reps: int) -> dict:
     return {name: statistics.median(t) for name, t in times.items()}
 
 
-def _old_stage2(counts: torch.Tensor, tile: int,
-                idx_dtype: torch.dtype) -> torch.Tensor:
+def _old_stage2(counts: torch.Tensor, tile: int, idx_dtype: torch.dtype,
+                run_sums=None) -> torch.Tensor:
     """Stage 2 as the counting pass did it before the bucket-scan kernel:
     each row's bucket-major cumsum plus the row's start, left in the
     bucket-major strides that rank_scatter then copied to contiguous."""
@@ -1828,11 +1972,34 @@ def _stage_breakdown(run, card: str, what: str) -> None:
         f"of 3 after a warm-up, CUDA events between stages; card: {card}")
 
 
+def _route_of_counting(call) -> dict:
+    """The kernels one run of ``call`` launches, by name, as
+    torch.profiler traces them: the counting path must launch the run-sum
+    histogram and the one-read scan, and no run_sum_kernel."""
+    torch.cuda.synchronize()
+    with trace() as prof:
+        call()
+        torch.cuda.synchronize()
+    names = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            name = ev.name.split("(")[0].split("<")[0].split()
+            if name:
+                names[name[-1]] = names.get(name[-1], 0) + 1
+    want = ("digit_histogram_runs_kernel", "run_scan_kernel",
+            "run_write_kernel", "rank_scatter_kernel")
+    if any(w not in names for w in want) or "run_sum_kernel" in names:
+        raise AssertionError(f"the counting path's kernels {names} are not "
+                             f"{want} without run_sum_kernel")
+    return {k: v for k, v in names.items() if "kernel" in k}
+
+
 def phase_counting_timing(x: torch.Tensor, bitonic_ms, card: str) -> None:
     """Counting sort_keys u32 and sort_pairs u32+u32 at 2**28: bit-exact
-    against torch.sort, both kernels launched, nothing gathered (the
-    kernel carries the keys and the values); timed, and broken down by
-    stage."""
+    against torch.sort, the three counting kernels launched (stage 2 given
+    stage 1's run sums: the counts read once, SCAN_SUM_WALKS unchanged,
+    no run_sum_kernel in the trace), nothing gathered (the kernel carries
+    the keys and the values); timed, and broken down by stage."""
     n = x.shape[0]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 13)
@@ -1849,7 +2016,8 @@ def phase_counting_timing(x: torch.Tensor, bitonic_ms, card: str) -> None:
                  x, vals, method="counting"))]
     for what, call in calls:
         before = (hist.KERNEL_LAUNCHES, counting_engine.KERNEL_LAUNCHES,
-                  counting_engine.GATHERED, hist.SCAN_LAUNCHES)
+                  counting_engine.GATHERED, hist.SCAN_LAUNCHES,
+                  hist.RUN_LAUNCHES, hist.SCAN_SUM_WALKS)
         cumsum, torch.cumsum = torch.cumsum, no_cumsum
         try:
             got = call()
@@ -1864,18 +2032,24 @@ def phase_counting_timing(x: torch.Tensor, bitonic_ms, card: str) -> None:
         log("10 timing", f"counting {what} n=2**28: "
             f"{'bit-exact' if ok else 'MISMATCH'} against torch.sort; "
             f"histogram launches={hist.KERNEL_LAUNCHES - before[0]} "
+            f"(with run sums {hist.RUN_LAUNCHES - before[4]}) "
             f"bucket_scan launches={hist.SCAN_LAUNCHES - before[3]} "
+            f"(with a summing walk {hist.SCAN_SUM_WALKS - before[5]}) "
             f"rank_scatter launches="
             f"{counting_engine.KERNEL_LAUNCHES - before[1]} "
             f"gathered={gathered}; no torch.cumsum")
         if not ok:
             raise AssertionError(f"counting {what} n=2**28 != torch.sort")
-        if (hist.KERNEL_LAUNCHES == before[0]
+        if (hist.RUN_LAUNCHES == before[4]
                 or hist.SCAN_LAUNCHES == before[3]
                 or counting_engine.KERNEL_LAUNCHES == before[1]):
             raise AssertionError(f"counting {what} did not launch the "
                                  f"histogram, bucket_scan and rank_scatter "
                                  f"kernels")
+        if hist.SCAN_SUM_WALKS != before[5]:
+            raise AssertionError(f"counting {what} launched a summing walk")
+        log("10 timing", f"counting {what} n=2**28: kernels in one call "
+            f"(torch.profiler) {_route_of_counting(call)}")
         if gathered:
             raise AssertionError(f"counting {what} gathered {gathered} "
                                  f"arrays")
@@ -1918,14 +2092,26 @@ def phase_counting_timing(x: torch.Tensor, bitonic_ms, card: str) -> None:
 
 
 @contextlib.contextmanager
-def _earlier_stage2():
-    """Within the block, the counting pass takes stage 2 as it did before
-    the bucket-scan kernel (:func:`_old_stage2`)."""
-    fn, hist.bucket_offsets = hist.bucket_offsets, _old_stage2
+def _stages(offsets):
+    """Within the block, the counting pass takes stage 1 without run sums
+    (digit_histogram) and stage 2 from ``offsets(counts, tile, idx_dtype,
+    run_sums=None)``."""
+    saved = hist.digit_histogram_runs, hist.bucket_offsets
+
+    def counts_alone(bits, shift, width, tile, tiles_per_row):
+        return hist.digit_histogram(bits, shift, width, tile), None
+
+    hist.digit_histogram_runs, hist.bucket_offsets = counts_alone, offsets
     try:
         yield
     finally:
-        hist.bucket_offsets = fn
+        hist.digit_histogram_runs, hist.bucket_offsets = saved
+
+
+def _earlier_stage2():
+    """Within the block, the counting pass takes stage 2 as it did before
+    the bucket-scan kernel (:func:`_old_stage2`)."""
+    return _stages(_old_stage2)
 
 
 def scan_ab(calls, card: str) -> None:
@@ -1946,16 +2132,22 @@ def scan_ab(calls, card: str) -> None:
             f"card: {card}")
 
 
-def counting_only(parent_src=None) -> None:
-    """Phases 1, 2 (the counting kernels only), 7 (bucket scan and
-    rank-and-scatter) and 10 alone, and the A/B against another
+def counting_only(parent_src=None, parent_scan=None) -> None:
+    """Phases 1, 2 (the counting kernels only), 7 (run sums, bucket scan
+    and rank-and-scatter) and 10 alone; the A/B against another
     rank_scatter.cu (bits and src only, the C interface of the kernel
-    before payloads) when ``parent_src`` names one:
-    ``python3 -c "import chip_smoke as c; c.counting_only('old.cu')"``."""
+    before payloads) when ``parent_src`` names one, and against another
+    bucket_scan.cu (the C interface before run sums) when ``parent_scan``
+    does: ``python3 -c "import chip_smoke as c;
+    c.counting_only(parent_scan='old_scan.cu')"``."""
     card = card_line()
     print(card, flush=True)
     phase_build(["digit_histogram", "bucket_scan", "rank_scatter"])
     x = bench_keys()
+    t0 = time.perf_counter()
+    err = phase_histogram_runs()
+    log("7 histogram-runs-vs-plain", f"all cases bit-equal in "
+        f"{time.perf_counter() - t0:.3f} s, max_abs_err={err}")
     t0 = time.perf_counter()
     err = phase_bucket_scan(x)
     log("7 bucket-scan-vs-plain", f"all cases bit-equal in "
@@ -1964,11 +2156,131 @@ def counting_only(parent_src=None) -> None:
     err = phase_rank_scatter()
     log("7 rank-scatter-vs-plain", f"all cases bit-equal in "
         f"{time.perf_counter() - t0:.3f} s, max_abs_err={err}")
+    phase_histogram_timing(x, card)
     phase_bucket_scan_timing(x, card)
     phase_rank_scatter_timing(x, card)
     phase_counting_timing(x, None, card)
     if parent_src:
         rank_scatter_ab(x, parent_src, card)
+    if parent_scan:
+        scan_parent_ab(x, parent_scan, card)
+
+
+def _parent_bucket_scan(path: str):
+    """Build another bucket_scan.cu (the C interface before run sums:
+    counts, rows, tiles, width, tile, out, idx_bytes, scratch, stream;
+    thrs_bucket_scan_scratch(rows, tiles, width)) into the ignored build
+    directory; ``offsets(counts, tile, idx_dtype, run_sums=None)`` through
+    it, allocating as its wrapper did."""
+    out = cuda_lib.BUILD_DIR / "ab" / "libbucket_scan_parent.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(out),
+                    path], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out))
+    fn, words = lib.thrs_bucket_scan, lib.thrs_bucket_scan_scratch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    words.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
+    words.restype = ctypes.c_longlong
+
+    def offsets(counts, tile, idx_dtype, run_sums=None):
+        R, Tr, nb = counts.shape
+        o = torch.empty((R, Tr, nb), dtype=idx_dtype, device=counts.device)
+        w = words(R, Tr, nb.bit_length() - 1)
+        scratch = (torch.empty(w, dtype=torch.int64, device=counts.device)
+                   if w else None)
+        rc = fn(counts.data_ptr(), R, Tr, nb.bit_length() - 1, tile,
+                o.data_ptr(), idx_dtype.itemsize,
+                scratch.data_ptr() if scratch is not None else None,
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"parent bucket scan failed: {rc}")
+        return o
+
+    return offsets
+
+
+#: the kernel names of a bucket_scan.cu before run sums (scan_parent_ab)
+PARENT_SCAN_KERNELS = ("chunk_sum_kernel", "column_scan_kernel",
+                       "chunk_write_kernel")
+
+
+def scan_parent_ab(x: torch.Tensor, parent_scan: str, card: str) -> None:
+    """This tree's stages 1-2 against another bucket_scan.cu's (the
+    parent commit's, which reads the counts twice and takes no run sums),
+    in one process, in turns (parent, change, change, parent), at 2**28
+    width 8 tile 2048: stage 2 a call and its kernels alone, int32 and
+    int64; stages 1 and 2 together (digit_histogram and the parent's scan
+    against digit_histogram_runs and the scan given the run sums); and the
+    counting sort_keys and sort_pairs with the parent's stages 1-2
+    swapped in."""
+    parent = _parent_bucket_scan(parent_scan)
+    tile, n = counting_engine.DEFAULT_TILE, x.shape[0]
+    bits = x.view(torch.int32)
+    counts, sums = hist.digit_histogram_runs(bits, 0, 8, tile, n // tile)
+    counts = counts.view(1, *counts.shape)
+    for idx_dt in (torch.int32, torch.int64):
+        want = hist.bucket_offsets_reference(counts, tile, idx_dt)
+        if not torch.equal(parent(counts, tile, idx_dt), want):
+            raise AssertionError("the parent's bucket scan != plain")
+        del want
+
+        def old():
+            return parent(counts, tile, idx_dt)
+
+        def new():
+            return hist.bucket_offsets(counts, tile, idx_dt, run_sums=sums)
+
+        t = [cuda_ms(f, 20) for f in (old, new, new, old)]
+        k = [sum(_kernels_alone(f, names, 10).values()) for f, names in (
+            (old, PARENT_SCAN_KERNELS), (new, SCAN_KERNELS),
+            (new, SCAN_KERNELS), (old, PARENT_SCAN_KERNELS))]
+        log("10 ab", f"bucket_scan {str(idx_dt)[6:]} n=2**28 width=8 "
+            f"tile={tile}: parent / change / change / parent a call "
+            f"{' / '.join(f'{v:.6f}' for v in t)} ms (median of 20, CUDA "
+            f"events); the kernels alone {' / '.join(f'{v:.6f}' for v in k)} "
+            f"ms (torch.profiler, median of 10); card: {card}")
+
+    def old12():
+        c = hist.digit_histogram(bits, 0, 8, tile)
+        return parent(c.view(1, *c.shape), tile, torch.int32)
+
+    def new12():
+        c, s = hist.digit_histogram_runs(bits, 0, 8, tile, n // tile)
+        return hist.bucket_offsets(c.view(1, *c.shape), tile, torch.int32,
+                                   run_sums=s)
+
+    if not torch.equal(old12(), new12()):
+        raise AssertionError("parent and change disagree on stages 1-2")
+    t = [cuda_ms(f, 10) for f in (old12, new12, new12, old12)]
+    log("10 ab", f"stages 1-2 int32 n=2**28 width=8 tile={tile}: parent / "
+        f"change / change / parent {' / '.join(f'{v:.6f}' for v in t)} ms; "
+        f"median of 10 each, CUDA events; card: {card}")
+    del counts, sums
+    vals = x.view(torch.int32).flip(0).view(torch.uint32)
+    for what, call in (
+            ("sort_keys u32", lambda: thrs.sort_keys(x, method="counting")),
+            ("sort_pairs u32+u32",
+             lambda: thrs.sort_pairs(x, vals, method="counting"))):
+
+        def old_sort():
+            with _stages(parent):
+                return call()
+
+        got, want = call(), old_sort()
+        if not all(torch.equal(a, b) for a, b in zip(
+                got if isinstance(got, tuple) else (got,),
+                want if isinstance(want, tuple) else (want,))):
+            raise AssertionError(f"parent and change disagree on {what}")
+        del got, want
+        t = [cuda_ms(f, 5) for f in (old_sort, call, call, old_sort)]
+        log("10 ab", f"counting {what} n=2**28: parent stages 1-2 / change "
+            f"/ change / parent {' / '.join(f'{v:.3f}' for v in t)} ms; "
+            f"median of 5 each, CUDA events; card: {card}")
+    del vals
+    torch.cuda.empty_cache()
 
 
 def _parent_rank_scatter(path: str):
@@ -2611,6 +2923,7 @@ def phase_harness(card: str) -> int:
 
     counting_engine.KERNEL_LAUNCHES = 0
     hist.SCAN_LAUNCHES = 0
+    walks = hist.SCAN_SUM_WALKS
     line, _ = _step("bench --method counting --verify full (2**28)",
                     lambda out: bench.run(1 << 28, 5, "full", "counting",
                                           "cuda"))
@@ -2630,6 +2943,8 @@ def phase_harness(card: str) -> int:
                                hist.SCAN_LAUNCHES) == bench_launches:
         raise AssertionError("a counting step did not launch rank_scatter "
                              "and bucket_scan")
+    if hist.SCAN_SUM_WALKS != walks:
+        raise AssertionError("a counting step launched a summing walk")
     return (sweep_launches, counting_engine.KERNEL_LAUNCHES,
             hist.SCAN_LAUNCHES)
 
@@ -2679,6 +2994,12 @@ def main() -> int:
     hist_err = phase_histogram()
     log("7 histogram-vs-plain", f"all cases bit-equal in "
         f"{time.perf_counter() - t0:.3f} s, max_abs_err={hist_err}")
+
+    t0 = time.perf_counter()
+    runs_err = phase_histogram_runs()
+    log("7 histogram-runs-vs-plain", f"all cases bit-equal in "
+        f"{time.perf_counter() - t0:.3f} s, max_abs_err={runs_err}")
+    hist_err = max(hist_err, runs_err)
 
     t0 = time.perf_counter()
     scan_err = phase_bucket_scan(x)
@@ -2762,14 +3083,17 @@ def main() -> int:
               plain_ms,
               bound(2 * 4 * (1 << 28), 2 * len(sweep.substages) * (1 << 27)),
               None),
-        # digit extraction: a shift, a mask and an add per word
+        # the counting engine's stage 1 at 2**28 u32, tile 2048: the run-sum
+        # kernel (the words read once, the counts and run sums written
+        # once); digit extraction: a shift, a mask and an add per word
         entry("digit_histogram", hist_launches, hist_err, h["ms"],
               h["plain_ms"], bound(h["bytes"], 3 * (1 << 28)),
               h["library_ms"]),
-        # the sort_keys pass's scan at 2**28 (int32 offsets): the counts
-        # read once, the offsets written once, one add a count; its library
-        # call, torch.cumsum, scans the counts already in bucket-major
-        # order; launches: the counting paths of phases 8 and 13
+        # the sort_keys pass's scan at 2**28 (int32 offsets) given the run
+        # sums: the counts and run sums read once, the offsets written
+        # once, one add a count; its library call, torch.cumsum, scans the
+        # counts already in bucket-major order; launches: the counting
+        # paths of phases 8 and 13
         entry("bucket_scan", scan_launches + scan_harness, scan_err,
               sc["ms"], sc["plain_ms"], bound(sc["bytes"], sc["ops"]),
               sc["library_ms"]),

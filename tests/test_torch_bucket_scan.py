@@ -82,6 +82,40 @@ def test_plain_version_on_skewed_counts(kind, idx_np):
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("idx_np", [np.int32, np.int64])
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("width", [1, 3, 8])
+def test_run_sums_route_matches_the_jax_scan(width, R, idx_np):
+    # rows of 7 tiles of 2**17 in runs of 2, the last one short
+    tile, Tr = 1 << 17, 7
+    rng = np.random.default_rng([RNG_SEED, width, R, 2])
+    counts = rng.integers(0, tile, size=(R, Tr, 1 << width), dtype=np.int32,
+                          endpoint=True)
+    sums = th.run_sums_reference(to_torch(counts), tile)
+    assert tuple(sums.shape) == (R, 4, 1 << width)
+    kept = sums.clone()
+    idx_dt = torch.int64 if idx_np == np.int64 else torch.int32
+    before = (th.SCAN_LAUNCHES, th.SCAN_SUM_WALKS)
+    got = th.bucket_offsets(to_torch(counts), tile, idx_dt, run_sums=sums)
+    assert (th.SCAN_LAUNCHES, th.SCAN_SUM_WALKS) == before  # plain version
+    assert torch.equal(sums, kept)  # which needs no run sums
+    assert got.dtype == idx_dt and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(),
+                                  _jax_offsets(counts, tile, idx_np))
+
+
+@pytest.mark.parametrize("bad", ["int32", "runs", "strided", "meta"])
+def test_bucket_offsets_refuses_run_sums_it_does_not_take(bad):
+    tile, Tr = 1 << 17, 7
+    counts = torch.zeros((2, Tr, 256), dtype=torch.int32)
+    sums = th.run_sums_reference(counts, tile)
+    sums = {"int32": sums.to(torch.int32), "runs": sums[:, :3],
+            "strided": sums.transpose(0, 1).contiguous().transpose(0, 1),
+            "meta": sums.to("meta")}[bad]
+    with pytest.raises(ValueError):
+        th.bucket_offsets(counts, tile, torch.int32, run_sums=sums)
+
+
 def _jax_src(digits, R, tile, width):
     """The JAX package's inverse permutation of one pass, row by row,
     offset to each row's range."""
@@ -107,6 +141,24 @@ def test_counting_pass_matches_the_jax_pass(R):
     assert stages == ["scan", "rank_scatter"] and moved == []
     digits = ((x >> shift) & 0xFF).reshape(R, Tr, TILE)
     want = _jax_src(digits, R, TILE, width)
+    np.testing.assert_array_equal(src.numpy(), want)
+    np.testing.assert_array_equal(bits_out.numpy().view(np.uint32), x[want])
+
+
+@pytest.mark.parametrize("R", [1, 2], ids=["one-row", "batched"])
+def test_counting_pass_with_run_sums_matches_the_jax_pass(R):
+    # rows of 130 tiles: runs of 128 and of 2
+    shift, width, Tr = 0, 8, 130
+    rng = np.random.default_rng([RNG_SEED, R, Tr])
+    x = rng.integers(0, 2**32, size=R * Tr * TILE, dtype=np.uint32)
+    x[::3] = x[1]  # ties: stability decides
+    bits = torch.from_numpy(x.view(np.int32).copy())
+    counts, sums = th.digit_histogram_runs(bits, shift, width, TILE, Tr)
+    bits_out, src, _ = tce._pass(
+        bits, shift, width, counts.view(R, Tr, 1 << width), TILE,
+        torch.int32, [], True, lambda stage: None, sums)
+    want = _jax_src(((x >> shift) & 0xFF).reshape(R, Tr, TILE), R, TILE,
+                    width)
     np.testing.assert_array_equal(src.numpy(), want)
     np.testing.assert_array_equal(bits_out.numpy().view(np.uint32), x[want])
 
@@ -159,3 +211,32 @@ def test_bucket_offsets_refuses_what_it_does_not_take(counts, tile, idx_dt,
     with pytest.raises(error):
         th.bucket_offsets(counts, tile, idx_dt)
     assert th.SCAN_LAUNCHES == before
+
+
+@pytest.mark.parametrize("shape,runs", [((280_000,), 4), ((2, 270_000), 4),
+                                        ((3, 3000), 0)],
+                         ids=["one-row", "batched", "rows-of-one-run"])
+def test_counting_sort_takes_the_run_sums_where_rows_hold_several_runs(
+        shape, runs, monkeypatch):
+    # rows of 137 and 132 tiles of 2048 hold two runs each: all four passes
+    # take stage 1's run sums; rows of one tile take none
+    rng = np.random.default_rng([RNG_SEED, len(shape), 9])
+    x = rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    x.reshape(-1)[::11] = x.reshape(-1)[2]  # ties: stability decides
+    calls = []
+    real = th.digit_histogram_runs
+
+    def counted(*args):
+        calls.append(args[1:])
+        return real(*args)
+
+    monkeypatch.setattr(th, "digit_histogram_runs", counted)
+    bits = torch.from_numpy(x.view(np.int32).copy())
+    (keys,) = tce.sort_arrays_counting(bits, [to_torch(x)], 0, 32)
+    assert len(calls) == runs
+    rows = x.reshape(-1, shape[-1])
+    want = [np.asarray(jce.sort_arrays_counting(jnp.asarray(r),
+                                                [jnp.asarray(r)], 0, 32)[0])
+            for r in rows]
+    np.testing.assert_array_equal(keys.numpy().reshape(rows.shape),
+                                  np.stack(want))

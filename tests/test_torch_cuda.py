@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels on the card (the bitonic sweep, the digit
-histogram, the counting engine's bucket scan and rank-and-scatter with its
-payloads, and the two probes):
+histogram with and without run sums, the counting engine's bucket scan on
+both its routes and rank-and-scatter with its payloads, and the two
+probes):
 against their plain PyTorch versions,
 through the public entry points (the bitonic and the portable engines, a
 donated sort, the partition front-end, the distributed sort on a one-rank
@@ -297,6 +298,51 @@ def test_histogram_kernel_refuses_what_it_does_not_take(cuda):
                            30, 8)
 
 
+@pytest.mark.parametrize("n,wide,shift,width,tile,R", [
+    (1 << 22, False, 0, 8, 2048, 1),            # runs of 128 tiles
+    (3 * 300 * 2048, False, 5, 1, 2048, 3),     # short last runs
+    (3 * 300 * 2048, False, 5, 2, 2048, 3),
+    (3 * 300 * 2048, False, 5, 3, 2048, 3),
+    (3 * 300 * 2048, False, 5, 4, 2048, 3),
+    (3 * 300 * 2048, False, 5, 5, 2048, 3),
+    (3 * 300 * 2048, False, 5, 6, 2048, 3),
+    (3 * 300 * 2048, False, 5, 7, 2048, 3),
+    (3 * 300 * 2048, True, 40, 8, 2048, 3),     # u64 bits
+    (2 * 127 * 2048, False, 8, 8, 2048, 2),     # around the run of 128
+    (2 * 128 * 2048, False, 8, 8, 2048, 2),
+    (2 * 129 * 2048, False, 8, 8, 2048, 2),
+    ((1 << 20) + 777, False, 0, 8, 2048, 1),    # ragged n
+    ((1 << 20) + 777, True, 60, 4, 1024, 1),
+    (4096 * 4096, False, 0, 8, 2048, 4096),     # rows of one run
+    (3000 * 3072, False, 16, 8, 3072, 3),       # parts straddle tiles
+    ((1 << 22) + 3, False, 0, 8, 20480, 1),     # tiles split between CTAs
+    (1 << 23, False, 24, 8, 65536, 2),
+    (1 << 24, True, 3, 8, 1 << 22, 2),
+    ((1 << 22) + 5, False, 0, 5, 1 << 22, 1),
+    (0, False, 0, 8, 2048, 1)])
+def test_histogram_runs_kernel_matches_plain_version(cuda, n, wide, shift,
+                                                     width, tile, R):
+    rng = np.random.default_rng([n, shift, width, tile])
+    x = rng.integers(0, 2**64 if wide else 2**32, size=n,
+                     dtype=np.uint64 if wide else np.uint32)
+    bits = torch.from_numpy(x.view(np.int64 if wide else np.int32)).to(cuda)
+    T = max(-(-n // th.round_tile(tile)), 1)
+    before = th.RUN_LAUNCHES
+    counts, sums = th.digit_histogram_runs(bits, shift, width, tile, T // R)
+    assert th.RUN_LAUNCHES == before + 1 and counts.is_cuda and sums.is_cuda
+    want_c, want_s = th.digit_histogram_runs_reference(bits, shift, width,
+                                                       tile, T // R)
+    assert torch.equal(counts, want_c) and torch.equal(sums, want_s)
+
+
+def test_histogram_runs_kernel_on_one_bucket(cuda):
+    bits = torch.full((300 * 2048,), 0x1234, dtype=torch.int32, device=cuda)
+    counts, sums = th.digit_histogram_runs(bits, 4, 8, 2048, 300)
+    want_c, want_s = th.digit_histogram_runs_reference(bits, 4, 8, 2048, 300)
+    assert torch.equal(counts, want_c) and torch.equal(sums, want_s)
+    assert int(sums[0, :, 0x23].sum()) == 300 * 2048
+
+
 def _tile_counts(rng, R, Tr, width, tile, kind):
     """(R, Tr, 2**width) int32 counts whose tiles each sum to ``tile``:
     random cut points, or every element in one bucket."""
@@ -354,6 +400,50 @@ def test_bucket_scan_kernel_on_chunk_edges_and_skew(cuda, R, Tr, width,
     _check_scan(cuda, R, Tr, width, 2048, idx_dt, kind)
 
 
+@pytest.mark.parametrize("R,Tr,width,tile,idx_dt,kind", [
+    (1, 1030, 8, 2048, torch.int32, "random"),
+    (1, 1030, 8, 2048, torch.int64, "random"),
+    (3, 300, 1, 2048, torch.int32, "random"),
+    (3, 300, 3, 1024, torch.int64, "random"),
+    (3, 300, 5, 2176, torch.int32, "random"),
+    (64, 130, 8, 2048, torch.int32, "random"),
+    (2, 127, 8, 2048, torch.int32, "random"),   # a row is one run
+    (2, 128, 8, 2048, torch.int64, "random"),
+    (2, 129, 8, 2048, torch.int32, "random"),   # a run of 1 tile
+    (5, 7, 8, 1 << 17, torch.int64, "random"),  # runs of 2 tiles
+    (3, 300, 8, 2048, torch.int64, "one"),
+    (1, 1 << 17, 8, 2048, torch.int32, "random"),  # 2**28 keys
+])
+def test_bucket_scan_kernel_takes_run_sums(cuda, R, Tr, width, tile, idx_dt,
+                                           kind):
+    counts = torch.from_numpy(_tile_counts(
+        np.random.default_rng([R, Tr, width, tile, 5]), R, Tr, width, tile,
+        kind)).to(cuda)
+    sums = th.run_sums_reference(counts, tile)
+    before = (th.SCAN_LAUNCHES, th.SCAN_SUM_WALKS)
+    got = th.bucket_offsets(counts, tile, idx_dt, run_sums=sums)
+    # the counts read once: no summing walk
+    assert (th.SCAN_LAUNCHES, th.SCAN_SUM_WALKS) == (before[0] + 1,
+                                                     before[1])
+    want = th.bucket_offsets_reference(counts, tile, idx_dt)
+    assert got.dtype == idx_dt and got.is_contiguous()
+    assert torch.equal(got, want)
+    # the summing route, on the same counts
+    got = th.bucket_offsets(counts, tile, idx_dt)
+    assert th.SCAN_SUM_WALKS == before[1] + (Tr > th.run_tiles(Tr, tile))
+    assert torch.equal(got, want)
+
+
+def test_bucket_scan_kernel_refuses_run_sums_it_does_not_take(cuda):
+    counts = torch.zeros((1, 300, 256), dtype=torch.int32, device=cuda)
+    sums = th.run_sums_reference(counts, 2048)
+    before = th.SCAN_LAUNCHES
+    for bad in (sums[:, :2], sums.to(torch.int32), sums.cpu()):
+        with pytest.raises(ValueError):
+            th.bucket_offsets(counts, 2048, torch.int32, run_sums=bad)
+    assert th.SCAN_LAUNCHES == before
+
+
 def test_bucket_scan_kernel_refuses_what_it_does_not_take(cuda):
     before = th.SCAN_LAUNCHES
     with pytest.raises(ValueError, match="width 1-8"):
@@ -389,6 +479,24 @@ def test_counting_engine_scans_on_the_card(cuda, shape, monkeypatch):
                                   np.take_along_axis(x, perm, -1))
     np.testing.assert_array_equal(got_v.cpu().numpy(),
                                   np.take_along_axis(v, perm, -1))
+
+
+@pytest.mark.parametrize("shape,runs", [((300_000,), 4),
+                                        ((3, 300_000), 4),
+                                        ((3, 100_000), 0)],
+                         ids=["one-row", "batched", "rows-of-one-run"])
+def test_counting_engine_reads_the_counts_once_on_the_card(cuda, shape,
+                                                           runs):
+    # rows of 147 tiles hold two runs: every pass launches the run-sum
+    # histogram and a scan with no summing walk; rows of 49 tiles (one
+    # run) take the plain histogram and the scan's one kernel
+    rng = np.random.default_rng([len(shape), 7])
+    x = rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    before = (th.RUN_LAUNCHES, th.SCAN_LAUNCHES, th.SCAN_SUM_WALKS)
+    got = tthrs.sort_keys(torch.from_numpy(x).to(cuda), method="counting")
+    assert (th.RUN_LAUNCHES, th.SCAN_LAUNCHES, th.SCAN_SUM_WALKS) == (
+        before[0] + runs, before[1] + 4, before[2])
+    np.testing.assert_array_equal(got.cpu().numpy(), np.sort(x, axis=-1))
 
 
 def _stage2(bits, shift, width, tile, R, idx_dt):

@@ -148,3 +148,80 @@ def test_extract_digit_parity(dtype, shift, width):
     np.testing.assert_array_equal(
         got.numpy(),
         np.asarray(jcommon.extract_digit(jnp.asarray(x), shift, width)))
+
+
+def _jax_run_sums(counts, R, run):
+    """The JAX counts ``(T, B)`` as R rows, summed over runs of ``run``
+    tiles (the last run of a row short), in int64."""
+    T, nb = counts.shape
+    rows = counts.reshape(R, T // R, nb).astype(np.int64)
+    return np.stack([np.stack([row[g:g + run].sum(0)
+                               for g in range(0, T // R, run)])
+                     for row in rows])
+
+
+def _port_hist_runs(x, shift, width, tile, tiles_per_row):
+    before = (th.KERNEL_LAUNCHES, th.RUN_LAUNCHES)
+    counts, sums = th.digit_histogram_runs(to_torch(x), shift, width, tile,
+                                           tiles_per_row)
+    # CPU tensors: the plain version
+    assert (th.KERNEL_LAUNCHES, th.RUN_LAUNCHES) == before
+    assert counts.dtype == torch.int32 and sums.dtype == torch.int64
+    return counts.numpy(), sums.numpy()
+
+
+@pytest.mark.parametrize("R", [1, 3])
+@pytest.mark.parametrize("width", [1, 3, 8])
+@pytest.mark.parametrize("tile,tiles", [(2048, 129), (1 << 17, 3)],
+                         ids=["runs-of-128", "tile-above-16384"])
+def test_run_sums_match_the_jax_counts(tile, tiles, width, R):
+    # rows of 129 tiles of 2048 (runs of 128, the last of 1 tile) and of 3
+    # tiles of 2**17 (runs of 2, the last of 1)
+    x = np.random.default_rng([RNG_SEED, width, R, tiles]).integers(
+        0, 2**32, size=R * tiles * tile, dtype=np.uint32)
+    shift = 32 - width
+    run = th.run_tiles(tiles, tile)
+    assert 1 < run < tiles and tiles % run
+    want = _jax_hist(x, shift, width, tile)
+    counts, sums = _port_hist_runs(x, shift, width, tile, tiles)
+    np.testing.assert_array_equal(counts, want)
+    assert sums.shape == (R, -(-tiles // run), 1 << width)
+    np.testing.assert_array_equal(sums, _jax_run_sums(want, R, run))
+
+
+@pytest.mark.parametrize("n,dtype,shift,width", [
+    (3 * (1 << 17) - 1000, np.uint32, 8, 8),   # the pad in the last run
+    (3 * (1 << 17) - 1, np.uint64, 56, 8),
+    (0, np.uint32, 0, 3),                      # one tile of pad
+])
+def test_run_sums_on_a_ragged_tail(n, dtype, shift, width):
+    tile = 1 << 17
+    x = np.random.default_rng(RNG_SEED + n).integers(
+        0, np.iinfo(dtype).max, size=n, dtype=dtype, endpoint=True)
+    want = _jax_hist(x, shift, width, tile)
+    T = want.shape[0]
+    counts, sums = _port_hist_runs(x, shift, width, tile, T)
+    np.testing.assert_array_equal(counts, want)
+    np.testing.assert_array_equal(
+        sums, _jax_run_sums(want, 1, th.run_tiles(T, tile)))
+    assert sums.sum() == T * tile
+
+
+@pytest.mark.parametrize("tiles,tile,run", [
+    (1, 2048, 1), (128, 2048, 128), (1000, 1024, 128), (1000, 8192, 32),
+    (7, 1 << 17, 2), (5, 1 << 22, 1), (3, 3000, 3)])
+def test_run_tiles(tiles, tile, run):
+    # at most 128 tiles and 2**18 elements a run, at most the row
+    assert th.run_tiles(tiles, tile) == run
+
+
+def test_digit_histogram_runs_refuses_what_it_does_not_take():
+    x = torch.zeros(4 * 2048, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        th.digit_histogram_runs(x, 0, 9, 2048, 4)     # width above 8
+    with pytest.raises(ValueError):
+        th.digit_histogram_runs(x, 0, 8, 2048, 3)     # 4 tiles, rows of 3
+    with pytest.raises(ValueError):
+        th.digit_histogram_runs(x, 0, 8, 2048, 0)
+    with pytest.raises(ValueError):
+        th.digit_histogram_runs(x.to("meta"), 0, 8, 2048, 4)

@@ -5,16 +5,20 @@ The reference's three-stage pass, in the same functional form as the JAX
 package (reference: tinyhipradixsort.hpp:867-933,
 kernel.cu:73-103/136-204/206-429):
 
-1. per-tile histogram of the current digit (<- blockCount): on CUDA tensors
-   the hand-written kernel of :mod:`.histogram`, on CPU tensors its plain
+1. per-tile histogram of the current digit (<- blockCount), with each run
+   of tiles' column sums where a row holds more than one run
+   (:func:`histogram.digit_histogram_runs`): on CUDA tensors the
+   hand-written kernel of :mod:`.histogram`, on CPU tensors its plain
    version;
 2. bucket-major exclusive scan of the ``[B, T]`` counters
    (<- prefixSumExclusiveInplace; the layout ``bucket * numTiles + tile`` is
    the reference's, kernel.cu:97, so a flat exclusive scan gives each
-   (bucket, tile) its global base offset), :func:`histogram.bucket_offsets`:
-   on CUDA tensors the hand-written kernel ``csrc/bucket_scan.cu``, which
-   writes the offsets in the tile-major layout stage 3 reads, on CPU
-   tensors its plain version;
+   (bucket, tile) its global base offset), :func:`histogram.bucket_offsets`
+   given stage 1's run sums: on CUDA tensors the hand-written kernel
+   ``csrc/bucket_scan.cu``, which reads the counts once and writes the
+   offsets in the tile-major layout stage 3 reads (rows of one run, which
+   need no run sums, take its one-kernel route), on CPU tensors its plain
+   version;
 3. stable rank within the tile + scatter (<- reorderKey/reorderKeyPair),
    :func:`rank_scatter`: on CUDA tensors the hand-written kernel
    ``csrc/rank_scatter.cu`` (per-warp digit masks and counters, the
@@ -257,12 +261,14 @@ def rank_scatter(bits: torch.Tensor, shift: int, width: int,
 
 
 def _pass(bits, shift: int, width: int, counts, tile: int, idx_dt, payloads,
-          want_src: bool, mark):
+          want_src: bool, mark, run_sums=None):
     """One pass of R rows of Tr tiles: ``bits`` flat, its per-tile counts
-    ``(R, Tr, 2**width)`` -> :func:`rank_scatter`'s ``(bits_out, src,
-    moved)``, ``src`` indexing the flat rows with ``out = x[src]``."""
+    ``(R, Tr, 2**width)`` and their run sums (consumed, see
+    :func:`histogram.bucket_offsets`) -> :func:`rank_scatter`'s
+    ``(bits_out, src, moved)``, ``src`` indexing the flat rows with ``out =
+    x[src]``."""
     # stage 2: each row's bucket-major exclusive scan, offset to its range
-    base = histogram.bucket_offsets(counts, tile, idx_dt)
+    base = histogram.bucket_offsets(counts, tile, idx_dt, run_sums=run_sums)
     mark("scan")
     out = rank_scatter(bits, shift, width, base, tile, idx_dt, payloads,
                        want_src)
@@ -320,12 +326,21 @@ def sort_arrays_counting(bits, arrays, start_bit: int, end_bit: int,
         keep = carried(arrays_p, R * npad)
         rest = [k for k in range(len(arrays_p)) if k not in keep]
         for shift, width in common.digit_plan(start_bit, end_bit, radix_bits):
-            # stage 1: per-tile counts (each row is whole tiles: no tail pad)
-            counts = histogram.digit_histogram(bits_p, shift, width, tile)
+            # stage 1: per-tile counts, and each run's column sums where a
+            # row holds several runs (each row is whole tiles: no tail pad);
+            # a row of one run is summed in stage 2's one kernel, cheaper
+            # than run sums as large as its counts
+            if Tr > histogram.run_tiles(Tr, tile):
+                counts, run_sums = histogram.digit_histogram_runs(
+                    bits_p, shift, width, tile, Tr)
+            else:
+                counts = histogram.digit_histogram(bits_p, shift, width, tile)
+                run_sums = None
             mark("histogram")
             bits_p, src, moved = _pass(
                 bits_p, shift, width, counts.view(R, Tr, 1 << width), tile,
-                idx_dt, [arrays_p[k] for k in keep], bool(rest), mark)
+                idx_dt, [arrays_p[k] for k in keep], bool(rest), mark,
+                run_sums)
             for k, a in zip(keep, moved):
                 arrays_p[k] = a
             for k in rest:
