@@ -107,7 +107,9 @@ Phases, one output line each (time, kernel launches, result):
    kernels, stage 2 on the run sums with no run_sum_kernel in the
    profiler's trace, to call no torch.cumsum and to gather nothing:
    ``counting_engine.GATHERED``) beside torch.sort and the bitonic
-   sort_keys, each with its per-stage breakdown, and each beside the same
+   sort_keys, each with its per-stage breakdown (CUDA events at the ends
+   of the engine's ``counting.*`` stage spans, through
+   ``tracing.observe``), and each beside the same
    sort with stage 2 done as before the bucket-scan kernel (``scan_ab``:
    the bucket-major cumsum and the copy rank_scatter then made), in turns,
    as are the three row cells of phase 5 through the counting engine.
@@ -193,6 +195,7 @@ import torch.distributed as dist  # noqa: E402
 
 import tinyhipradixsort_torch as thrs  # noqa: E402
 from tinyhipradixsort_torch import keybits  # noqa: E402
+from tinyhipradixsort_torch import tracing  # noqa: E402
 from tinyhipradixsort_torch.ops import bitonic_engine as be  # noqa: E402
 from tinyhipradixsort_torch.ops import counting_engine  # noqa: E402
 from tinyhipradixsort_torch.ops import cuda_lib  # noqa: E402
@@ -1942,9 +1945,15 @@ def phase_rank_scatter_timing(x: torch.Tensor, card: str) -> dict:
     return result
 
 
+#: the counting engine's stage spans, in the order their ends come
+COUNTING_STAGES = ("counting.pad", "counting.histogram", "counting.scan",
+                   "counting.rank_scatter", "counting.gathers")
+
+
 def _stage_breakdown(run, card: str, what: str) -> None:
-    """Per-stage device time of ``run(mark)``, which calls the counting
-    engine with the mark hook: median of 3 after a warm-up."""
+    """Per-stage device time of ``run()``, which calls the counting
+    engine: CUDA events at the ends of its stage spans, recorded through
+    ``tracing.observe``; median of 3 after a warm-up."""
     passes = []
     for rep in range(4):
         events = []
@@ -1954,8 +1963,13 @@ def _stage_breakdown(run, card: str, what: str) -> None:
             ev.record()
             events.append((stage, ev))
 
+        def at_end(event, name, attrs):
+            if event == "end" and name in COUNTING_STAGES:
+                mark(name.split(".", 1)[1])
+
         mark("start")
-        run(mark)
+        with tracing.observe(at_end):
+            run()
         torch.cuda.synchronize()
         if rep:
             stages = {}
@@ -1969,7 +1983,8 @@ def _stage_breakdown(run, card: str, what: str) -> None:
         log("10 timing", f"counting {what} breakdown {stage}: {med:.3f} ms"
             + (" (4 passes)" if stage != "pad" else ""))
     log("10 timing", f"counting {what} breakdown sum {total:.3f} ms; median "
-        f"of 3 after a warm-up, CUDA events between stages; card: {card}")
+        f"of 3 after a warm-up, CUDA events at the stage spans' ends; card: "
+        f"{card}")
 
 
 def _route_of_counting(call) -> dict:
@@ -2066,14 +2081,13 @@ def phase_counting_timing(x: torch.Tensor, bitonic_ms, card: str) -> None:
         f"{'not run' if bitonic_ms is None else f'{bitonic_ms:.3f} ms'}; "
         f"card: {card}")
     bits = keybits.key_bits(x)
-    _stage_breakdown(lambda mark: counting_engine.sort_arrays_counting(
-        bits, [x], 0, 32, mark=mark), card, "sort_keys u32")
-    _stage_breakdown(lambda mark: counting_engine.sort_arrays_counting(
-        bits, [x, vals], 0, 32, mark=mark), card, "sort_pairs u32+u32")
+    _stage_breakdown(lambda: counting_engine.sort_arrays_counting(
+        bits, [x], 0, 32), card, "sort_keys u32")
+    _stage_breakdown(lambda: counting_engine.sort_arrays_counting(
+        bits, [x, vals], 0, 32), card, "sort_pairs u32+u32")
     with _earlier_stage2():
-        _stage_breakdown(lambda mark: counting_engine.sort_arrays_counting(
-            bits, [x], 0, 32, mark=mark), card,
-            "sort_keys u32 (earlier stage 2)")
+        _stage_breakdown(lambda: counting_engine.sort_arrays_counting(
+            bits, [x], 0, 32), card, "sort_keys u32 (earlier stage 2)")
     del bits
     # the row cells of phase 5 (rows of at most 128 tiles: one scan kernel)
     rows = [x[:1 << 24].view(4096, 4096), x[:1 << 24].view(16384, 1024),

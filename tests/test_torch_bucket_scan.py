@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from tests.torch_helpers import to_torch
+from tinyhipradixsort_torch import tracing
 from tinyhipradixsort_torch.ops import counting_engine as tce
 from tinyhipradixsort_torch.ops import histogram as th
 from tinyhipradixsort_tpu.ops import counting_engine as jce
@@ -134,11 +135,13 @@ def test_counting_pass_matches_the_jax_pass(R):
     x[::5] = x[3]  # ties: stability decides
     bits = torch.from_numpy(x.view(np.int32).copy())
     counts = th.digit_histogram(bits, shift, width, TILE)
-    stages = []
-    bits_out, src, moved = tce._pass(
-        bits, shift, width, counts.view(R, Tr, 1 << width), TILE,
-        torch.int32, [], True, stages.append)
-    assert stages == ["scan", "rank_scatter"] and moved == []
+    with tracing.record() as rec:
+        bits_out, src, moved = tce._pass(
+            bits, shift, width, counts.view(R, Tr, 1 << width), TILE,
+            torch.int32, [], True)
+    stages = [s.name for s in rec.spans if s.name.startswith("counting.")]
+    assert stages == ["counting.scan", "counting.rank_scatter"]
+    assert moved == []
     digits = ((x >> shift) & 0xFF).reshape(R, Tr, TILE)
     want = _jax_src(digits, R, TILE, width)
     np.testing.assert_array_equal(src.numpy(), want)
@@ -156,7 +159,7 @@ def test_counting_pass_with_run_sums_matches_the_jax_pass(R):
     counts, sums = th.digit_histogram_runs(bits, shift, width, TILE, Tr)
     bits_out, src, _ = tce._pass(
         bits, shift, width, counts.view(R, Tr, 1 << width), TILE,
-        torch.int32, [], True, lambda stage: None, sums)
+        torch.int32, [], True, sums)
     want = _jax_src(((x >> shift) & 0xFF).reshape(R, Tr, TILE), R, TILE,
                     width)
     np.testing.assert_array_equal(src.numpy(), want)

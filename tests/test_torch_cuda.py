@@ -5,8 +5,9 @@ probes):
 against their plain PyTorch versions,
 through the public entry points (the bitonic and the portable engines, a
 donated sort, the partition front-end, the distributed sort on a one-rank
-NCCL group with both index widths and donated, ``utils.time_fn``), and
-their input checks. Marked ``cuda``; each test skips where
+NCCL group with both index widths and donated, ``utils.time_fn``), their
+input checks, and the recorder's launch spans against the kernels' own
+counters. Marked ``cuda``; each test skips where
 ``torch.cuda.is_available()`` is false.
 
 On a machine with an NVIDIA Hopper GPU:
@@ -24,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 import tinyhipradixsort_torch as tthrs
+from tinyhipradixsort_torch import tracing
 from tinyhipradixsort_torch.ops import bitonic_engine as tbe
 from tinyhipradixsort_torch.ops import counting_engine as tce
 from tinyhipradixsort_torch.ops import histogram as th
@@ -497,6 +499,41 @@ def test_counting_engine_reads_the_counts_once_on_the_card(cuda, shape,
     assert (th.RUN_LAUNCHES, th.SCAN_LAUNCHES, th.SCAN_SUM_WALKS) == (
         before[0] + runs, before[1] + 4, before[2])
     np.testing.assert_array_equal(got.cpu().numpy(), np.sort(x, axis=-1))
+
+
+@pytest.mark.parametrize("method", ["counting", "bitonic"])
+def test_launch_spans_count_what_the_kernels_count(cuda, method):
+    # 2**20 keys through counting: 512 tiles, rows of four runs, so each
+    # of the 4 passes launches the run-sum histogram, the scan and
+    # rank-and-scatter once
+    rng = np.random.default_rng(20)
+    x = torch.from_numpy(rng.integers(0, 2**32, size=1 << 20,
+                                      dtype=np.uint32)).to(cuda)
+    tthrs.sort_keys(x, method=method)  # the kernels' builds
+    counters = (lambda: th.RUN_LAUNCHES, lambda: th.SCAN_LAUNCHES,
+                lambda: tce.KERNEL_LAUNCHES, lambda: tbe.KERNEL_LAUNCHES,
+                lambda: th.KERNEL_LAUNCHES)
+    before = [c() for c in counters]
+    with tracing.record() as rec:
+        got = tthrs.sort_keys(x, method=method)
+    deltas = [c() - b for c, b in zip(counters, before)]
+    names = [s.name for s in rec.spans]
+    launches = [names.count(f"launch.{k}") for k in (
+        "digit_histogram_runs", "bucket_scan", "rank_scatter",
+        "bitonic_sweep")]
+    assert launches == deltas[:4]
+    assert names.count("launch.digit_histogram") == deltas[4] - deltas[0]
+    if method == "counting":
+        assert launches == [4, 4, 4, 0]
+    else:
+        assert launches[:3] == [0, 0, 0] and launches[3] > 0
+    assert rec.counts == {(1, "launches"): sum(launches)}
+    assert [s.name for s in rec.spans
+            if s.parent is None and s.name != "gc"] == ["sort_keys"]
+    assert tracing.split(rec.spans)[1]["kernels"] > 0
+    assert set(rec.memory) == set(tracing.MEMORY_STATS)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  np.sort(x.cpu().numpy()))
 
 
 def _stage2(bits, shift, width, tile, R, idx_dt):

@@ -19,7 +19,7 @@ from tinyhipradixsort_torch.ops import partition_engine
 from tinyhipradixsort_torch.tools import gather_floor, partition_dma_floor
 from tinyhipradixsort_torch.parallel import dryrun, multihost, psort
 from tinyhipradixsort_torch.utils import native_oracle, prng, profiling
-from tinyhipradixsort_torch import bench, entry
+from tinyhipradixsort_torch import bench, entry, tracing
 from tinyhipradixsort_torch.benchmarks import full, scaling
 from tinyhipradixsort_torch.examples import helloworld, segmented, soak
 from tinyhipradixsort_torch.tools import (baseline_scale, drive,
@@ -30,6 +30,7 @@ loaded = sorted(m for m in sys.modules
 assert not loaded, loaded
 assert not cuda_lib.BUILD_INFO
 assert not native_oracle._tried
+assert tracing._REC is None
 for mod in (bitonic_engine, histogram, gather_floor, partition_dma_floor):
     assert mod.KERNEL_LAUNCHES == 0, mod
 print("clean")

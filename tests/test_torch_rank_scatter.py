@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import tinyhipradixsort_torch as tthrs
+from tinyhipradixsort_torch import tracing
 from tinyhipradixsort_torch.ops import counting_engine as tce
 from tinyhipradixsort_tpu.ops import counting_engine as jce
 
@@ -175,14 +176,16 @@ def test_plain_version_carries_up_to_max_payloads(count, want_src):
 def test_engine_marks_its_stages_and_launches_nothing_on_the_cpu():
     x = np.random.default_rng(RNG_SEED).integers(0, 2**32, size=5000,
                                                  dtype=np.uint32)
-    stages = []
     before = tce.KERNEL_LAUNCHES
-    out = tce.sort_arrays_counting(torch.from_numpy(x.view(np.int32)),
-                                   [torch.from_numpy(x)], 0, 32,
-                                   mark=stages.append)
+    with tracing.record() as rec:
+        out = tce.sort_arrays_counting(torch.from_numpy(x.view(np.int32)),
+                                       [torch.from_numpy(x)], 0, 32)
     np.testing.assert_array_equal(out[0].numpy(), np.sort(x))
+    stages = [s.name.split(".", 1)[1] for s in rec.spans
+              if s.name.startswith("counting.") and s.name != "counting.sort"]
     assert stages == ["pad"] + 4 * ["histogram", "scan", "rank_scatter",
                                     "gathers"]
+    assert not any(s.name.startswith("launch.") for s in rec.spans)
     np.testing.assert_array_equal(
         tthrs.sort_keys(torch.from_numpy(x), method="counting").numpy(),
         np.sort(x))

@@ -12,13 +12,15 @@ XLA's sort (not a Pallas kernel):
   (reference: tinyhipradixsort.hpp:867-933).
 
 ``bits`` is ``(n,)`` or, for batched rows, ``(B, n)`` (each row sorts on its
-own); the arrays share those leading axes.
+own); the arrays share those leading axes. While :mod:`..tracing` records,
+each sort is the span ``argsort.sort`` or ``argsort.lsd_sort``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from . import common
 
 
@@ -40,17 +42,21 @@ def _argsort(key: torch.Tensor) -> torch.Tensor:
 
 
 def sort_arrays_argsort(bits, arrays, start_bit, end_bit):
-    window = common.window_values(bits, start_bit, end_bit)
-    src = _argsort(_unsigned_order(window, start_bit, end_bit))
-    return [common.take(a, src) for a in arrays]
+    with tracing.span("argsort.sort", n=bits.shape[-1], words=len(arrays)):
+        window = common.window_values(bits, start_bit, end_bit)
+        src = _argsort(_unsigned_order(window, start_bit, end_bit))
+        return [common.take(a, src) for a in arrays]
 
 
 def sort_arrays_lsd_argsort(bits, arrays, start_bit, end_bit,
                             radix_bits=common.RADIX_BITS):
     # digits of radix_bits <= 31 bits are non-negative int32: signed order
     # is their unsigned order
-    for shift, width in common.digit_plan(start_bit, end_bit, radix_bits):
-        src = _argsort(common.extract_digit(bits, shift, width))
-        bits = common.take(bits, src)
-        arrays = [common.take(a, src) for a in arrays]
+    with tracing.span("argsort.lsd_sort", n=bits.shape[-1],
+                      words=len(arrays)):
+        for shift, width in common.digit_plan(start_bit, end_bit,
+                                              radix_bits):
+            src = _argsort(common.extract_digit(bits, shift, width))
+            bits = common.take(bits, src)
+            arrays = [common.take(a, src) for a in arrays]
     return arrays

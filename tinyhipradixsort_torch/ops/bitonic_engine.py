@@ -70,9 +70,15 @@ are copied once before the first sweep. With ``in_place=True`` (the API's
 ``donate=``) the caller hands its words over: a route that needs no padding
 sweeps them where they lie.
 
-:data:`MARK`, when set, observes the route each call takes, the route of
-each merge of two sorted runs, and the parts of a segmented sort (for
-measurement; ``chip_smoke.py`` times them).
+Each call records into :mod:`..tracing` while a recording is on: the
+spans ``bitonic.sort_words`` and ``bitonic.sort_words_rows``, the route
+each takes and the route of each merge of two sorted runs as the instant
+``bitonic.route``, each part of a segmented sort or of the partition
+front-end as a span ``bitonic.<part>``, and each kernel launch as a span
+``launch.bitonic_sweep``; a tool times the parts by CUDA events at their
+edges through ``tracing.observe``. :data:`MARK`, an older observer that
+tests and the benchmark's route line read, sees the same routes and
+parts.
 """
 
 from __future__ import annotations
@@ -85,7 +91,7 @@ from dataclasses import dataclass, fields
 
 import torch
 
-from .. import keybits
+from .. import keybits, tracing
 from . import common, cuda_lib
 
 # ---------------------------------------------------------------------------
@@ -383,15 +389,18 @@ def _launch_sweep(words: list, sweep: Sweep, ncmp: int) -> list:
     if nwords * 4 * sweep.tile_elems > SMEM_MAX_BYTES:
         raise ValueError(f"a {sweep.tile_elems}-element tile of {nwords} "
                          f"words exceeds {SMEM_MAX_BYTES} B of shared memory")
-    fn = _sweep_fn()
-    ptrs = (ctypes.c_void_p * nwords)(*[w.data_ptr() for w in words])
-    ks = (ctypes.c_int * len(subs))(*[k for k, _ in subs])
-    fbs = (ctypes.c_int * len(subs))(*[sweep.tile_bit(j) for _, j in subs])
-    forced = -1 if sweep.forced_asc is None else sweep.forced_asc
-    with torch.cuda.device(w0.device):
-        stream = torch.cuda.current_stream(w0.device).cuda_stream
-        rc = fn(ptrs, nwords, ncmp, sweep.c, sweep.g, sweep.j_lo,
-                w0.shape[0], forced, ks, fbs, len(subs), stream)
+    with tracing.span("launch.bitonic_sweep", n=w0.shape[0], words=nwords):
+        tracing.count("launches")
+        fn = _sweep_fn()
+        ptrs = (ctypes.c_void_p * nwords)(*[w.data_ptr() for w in words])
+        ks = (ctypes.c_int * len(subs))(*[k for k, _ in subs])
+        fbs = (ctypes.c_int * len(subs))(*[sweep.tile_bit(j)
+                                           for _, j in subs])
+        forced = -1 if sweep.forced_asc is None else sweep.forced_asc
+        with torch.cuda.device(w0.device):
+            stream = torch.cuda.current_stream(w0.device).cuda_stream
+            rc = fn(ptrs, nwords, ncmp, sweep.c, sweep.g, sweep.j_lo,
+                    w0.shape[0], forced, ks, fbs, len(subs), stream)
     if rc != 0:
         raise RuntimeError(f"bitonic sweep kernel launch failed: CUDA error "
                            f"{rc} ({sweep})")
@@ -518,7 +527,7 @@ _INT32_MIN = -(1 << 31)
 #: and won at 2**26 and above (1.11-1.42x; PERF.md section 5).
 _ROW_SEG_MIN_PADDED = 1 << 26
 
-#: observer for measurement (``None``: off). Called as
+#: observer of routes and parts (``None``: off). Called as
 #: ``MARK(event, name, words)``: ``event="route"`` once per routing decision
 #: (``name`` one of "padded", "segmented", "rows", "rows-segmented",
 #: "partition", "partition-fallback", and for a merge of two sorted runs
@@ -527,22 +536,33 @@ _ROW_SEG_MIN_PADDED = 1 << 26
 #: network", "recursive remainder", "dense levels", "merge sweeps") or of
 #: the partition front-end ("rank sort", "counts", "scatter", "bucket
 #: sorts", "merges", "fallback"); parts nest, the outermost is the part.
+#: The same calls also record into :mod:`..tracing`: a route as the
+#: instant ``bitonic.route`` (attribute ``route``), a part as the span
+#: ``bitonic.<part>``.
 MARK = None
 
 
 def _mark_route(name: str, words: list) -> None:
+    tracing.event("bitonic.route", route=name, n=words[0].shape[0],
+                  words=len(words))
     if MARK is not None:
         MARK("route", name, words)
 
 
-@contextlib.contextmanager
 def _part(name: str, words: list):
-    if MARK is None:
+    """The span ``bitonic.<name>`` of one part of a route, shown to
+    :data:`MARK` too when it is set."""
+    sp = tracing.span(f"bitonic.{name}", n=words[0].shape[0],
+                      words=len(words))
+    return sp if MARK is None else _marked_part(sp, name, words)
+
+
+@contextlib.contextmanager
+def _marked_part(sp, name: str, words: list):
+    with sp:
+        MARK("begin", name, words)
         yield
-        return
-    MARK("begin", name, words)
-    yield
-    MARK("end", name, words)
+        MARK("end", name, words)
 
 
 def _fill(i: int, ncmp: int) -> int:
@@ -603,17 +623,18 @@ def sort_words(cmp_words: list, carry_words: list, *,
     if tie_safe and (n & (n - 1) or n < 1 << MIN_L):
         raise ValueError(f"allow_tied_carries needs pad-free n (power of two "
                          f">= {1 << MIN_L}), got {n}")
-    if (not tie_safe and tuning.partition_bits > 0
-            and tuning.partition_min_n <= n < 1 << 31):
-        from . import partition_engine
-
-        return partition_engine.sort_words_partition(
-            list(cmp_words), list(carry_words), tuning=tuning)
     ncmp = len(cmp_words)
     words = list(cmp_words) + list(carry_words)
-    if in_place:
-        words = [w.contiguous() for w in words]
-    words = _sort_flat(words, ncmp, tuning, 0, owned=in_place)
+    with tracing.span("bitonic.sort_words", n=n, words=len(words)):
+        if (not tie_safe and tuning.partition_bits > 0
+                and tuning.partition_min_n <= n < 1 << 31):
+            from . import partition_engine
+
+            return partition_engine.sort_words_partition(
+                list(cmp_words), list(carry_words), tuning=tuning)
+        if in_place:
+            words = [w.contiguous() for w in words]
+        words = _sort_flat(words, ncmp, tuning, 0, owned=in_place)
     return words[:ncmp], words[ncmp:]
 
 
@@ -899,23 +920,26 @@ def sort_words_rows(cmp_words: list, carry_words: list, shape, *,
             f"allow_tied_carries needs power-of-two rows, got {nr}")
     tuning = _tuning_or_env(tuning)
     words = list(cmp_words) + list(carry_words)
-    if (nr & (nr - 1) and _seg_depth < _MAX_SEG_DEPTH
-            and nr > max(tuning.row_seg_min_nr, 32)
-            and B << r >= _ROW_SEG_MIN_PADDED
-            and nr < int((1 << r) * (1.0 - tuning.row_seg_waste))):
-        _mark_route("rows-segmented", words)
-        words = _sort_segmented_rows(words, B, nr, ncmp, tuning, _seg_depth)
-        return words[:ncmp], words[ncmp:]
-    _mark_route("rows", words)
-    T, b_pad = _row_plan(B, r, nwords, tuning)
-    if in_place and nr == 1 << r and b_pad == B:
-        words = [w.contiguous() for w in words]
-    else:
-        words = [_pad_rows(w, B, nr, r, b_pad, _fill(i, ncmp))
-                 for i, w in enumerate(words)]
-    words = _run_network(words, ncmp, max(T, r), tuning,
-                         stages=range(1, r + 1), forced_asc=r, tile_bits=T)
-    words = [w.view(b_pad, 1 << r)[:B, :nr].reshape(-1) for w in words]
+    with tracing.span("bitonic.sort_words_rows", n=B * nr, words=nwords):
+        if (nr & (nr - 1) and _seg_depth < _MAX_SEG_DEPTH
+                and nr > max(tuning.row_seg_min_nr, 32)
+                and B << r >= _ROW_SEG_MIN_PADDED
+                and nr < int((1 << r) * (1.0 - tuning.row_seg_waste))):
+            _mark_route("rows-segmented", words)
+            words = _sort_segmented_rows(words, B, nr, ncmp, tuning,
+                                         _seg_depth)
+            return words[:ncmp], words[ncmp:]
+        _mark_route("rows", words)
+        T, b_pad = _row_plan(B, r, nwords, tuning)
+        if in_place and nr == 1 << r and b_pad == B:
+            words = [w.contiguous() for w in words]
+        else:
+            words = [_pad_rows(w, B, nr, r, b_pad, _fill(i, ncmp))
+                     for i, w in enumerate(words)]
+        words = _run_network(words, ncmp, max(T, r), tuning,
+                             stages=range(1, r + 1), forced_asc=r,
+                             tile_bits=T)
+        words = [w.view(b_pad, 1 << r)[:B, :nr].reshape(-1) for w in words]
     return words[:ncmp], words[ncmp:]
 
 

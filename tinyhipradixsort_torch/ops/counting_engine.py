@@ -42,6 +42,7 @@ import functools
 
 import torch
 
+from .. import tracing
 from . import common, cuda_lib, histogram
 
 DEFAULT_TILE = 2048  # reference RADIX_SORT_BLOCK_SIZE (hpp:19)
@@ -206,19 +207,21 @@ def _launch_rank_scatter(bits, shift, width, base, tile, idx_dtype, payloads,
     moved = [torch.empty_like(p) for p in payloads]
     if n == 0:
         return bits_out, src, moved
-    table = (_Payload * MAX_PAYLOADS)()
-    for k, (p, q) in enumerate(zip(payloads, moved)):
-        table[k] = _Payload(p.data_ptr(), q.data_ptr(),
-                            payload_row_bytes(p, n))
     # the kernel hands its blocks their work in order from this counter
     tickets = torch.zeros(1, dtype=torch.int32, device=bits.device)
-    fn = _rank_scatter_fn()
-    with torch.cuda.device(bits.device):
-        stream = torch.cuda.current_stream(bits.device).cuda_stream
-        rc = fn(bits.data_ptr(), bits.dtype.itemsize, n, base.shape[0],
-                shift, width, tile, base.data_ptr(), idx_dtype.itemsize,
-                bits_out.data_ptr(), src.data_ptr() if want_src else None,
-                table, len(payloads), stream, tickets.data_ptr())
+    with tracing.span("launch.rank_scatter", n=n, words=len(payloads)):
+        tracing.count("launches")
+        table = (_Payload * MAX_PAYLOADS)()
+        for k, (p, q) in enumerate(zip(payloads, moved)):
+            table[k] = _Payload(p.data_ptr(), q.data_ptr(),
+                                payload_row_bytes(p, n))
+        fn = _rank_scatter_fn()
+        with torch.cuda.device(bits.device):
+            stream = torch.cuda.current_stream(bits.device).cuda_stream
+            rc = fn(bits.data_ptr(), bits.dtype.itemsize, n, base.shape[0],
+                    shift, width, tile, base.data_ptr(), idx_dtype.itemsize,
+                    bits_out.data_ptr(), src.data_ptr() if want_src else None,
+                    table, len(payloads), stream, tickets.data_ptr())
     if rc != 0:
         raise RuntimeError(f"rank-and-scatter kernel launch failed: CUDA "
                            f"error {rc} (n={n} shift={shift} width={width} "
@@ -261,19 +264,20 @@ def rank_scatter(bits: torch.Tensor, shift: int, width: int,
 
 
 def _pass(bits, shift: int, width: int, counts, tile: int, idx_dt, payloads,
-          want_src: bool, mark, run_sums=None):
+          want_src: bool, run_sums=None, at=None):
     """One pass of R rows of Tr tiles: ``bits`` flat, its per-tile counts
     ``(R, Tr, 2**width)`` and their run sums (consumed, see
     :func:`histogram.bucket_offsets`) -> :func:`rank_scatter`'s
     ``(bits_out, src, moved)``, ``src`` indexing the flat rows with ``out =
-    x[src]``."""
+    x[src]``. ``at``: the pass's span attributes."""
+    at = at or {}
     # stage 2: each row's bucket-major exclusive scan, offset to its range
-    base = histogram.bucket_offsets(counts, tile, idx_dt, run_sums=run_sums)
-    mark("scan")
-    out = rank_scatter(bits, shift, width, base, tile, idx_dt, payloads,
-                       want_src)
-    mark("rank_scatter")
-    return out
+    with tracing.span("counting.scan", **at):
+        base = histogram.bucket_offsets(counts, tile, idx_dt,
+                                        run_sums=run_sums)
+    with tracing.span("counting.rank_scatter", **at):
+        return rank_scatter(bits, shift, width, base, tile, idx_dt, payloads,
+                            want_src)
 
 
 def carried(arrays, n: int) -> list[int]:
@@ -287,26 +291,34 @@ def carried(arrays, n: int) -> list[int]:
 
 def sort_arrays_counting(bits, arrays, start_bit: int, end_bit: int,
                          radix_bits: int = common.RADIX_BITS,
-                         tile: int = DEFAULT_TILE, mark=None):
+                         tile: int = DEFAULT_TILE):
     """Stable sort of ``arrays`` by the window ``[start_bit, end_bit)`` of
     ``bits`` (``(n,)``, or ``(B, n)`` rows sorted each on its own).
 
     ``tile`` must be a histogram tile (:func:`histogram.round_tile` leaves it
     as it is), and ``radix_bits`` at most :data:`histogram.SCAN_MAX_WIDTH`
-    (the reference's 8). ``mark(stage)``, when given, is called after the
-    padding (``"pad"``) and after each stage of each pass
-    (``"histogram"``, ``"scan"``, ``"rank_scatter"`` and ``"gathers"``),
-    for timing.
+    (the reference's 8).
 
     Up to :data:`MAX_PAYLOADS` arrays ride through :func:`rank_scatter` as
     payloads (:func:`carried`); ``src`` is asked for only when an array is
     left over, and the leftovers are gathered by it.
+
+    While :mod:`..tracing` records, the sort is the span ``counting.sort``
+    and its stages its children: ``counting.pad``, then in each pass
+    (attributes ``pass`` and ``shift``) ``counting.histogram``,
+    ``counting.scan``, ``counting.rank_scatter`` and ``counting.gathers``.
     """
-    global GATHERED
     if tile != histogram.round_tile(tile):
         raise ValueError(f"tile {tile} is not a histogram tile (a multiple "
                          "of 128 in [1024, 2**22])")
-    mark = mark or (lambda stage: None)
+    with tracing.span("counting.sort", n=bits.shape[-1], words=len(arrays)):
+        return _sort_counting(bits, arrays, start_bit, end_bit, radix_bits,
+                              tile)
+
+
+def _sort_counting(bits, arrays, start_bit, end_bit, radix_bits, tile):
+    """:func:`sort_arrays_counting` inside its span."""
+    global GATHERED
     batched = bits.ndim == 2
     if not batched:
         bits = bits.unsqueeze(0)
@@ -315,38 +327,41 @@ def sort_arrays_counting(bits, arrays, start_bit: int, end_bit: int,
     if n <= 1 or R == 0:
         out = [a.clone() for a in arrays]
     else:
-        bits_p = _pad_rows(bits, tile, -1)
-        arrays_p = [_pad_rows(a, tile, 0) for a in arrays]
+        with tracing.span("counting.pad"):
+            bits_p = _pad_rows(bits, tile, -1)
+            arrays_p = [_pad_rows(a, tile, 0) for a in arrays]
         npad = bits_p.shape[1]
         idx_dt = _index_dtype(R * npad)
         Tr = npad // tile
         bits_p = bits_p.view(-1)
         arrays_p = [a.view(R * npad, *a.shape[2:]) for a in arrays_p]
-        mark("pad")
         keep = carried(arrays_p, R * npad)
         rest = [k for k in range(len(arrays_p)) if k not in keep]
-        for shift, width in common.digit_plan(start_bit, end_bit, radix_bits):
+        plan = common.digit_plan(start_bit, end_bit, radix_bits)
+        for i, (shift, width) in enumerate(plan):
+            at = {"pass": i, "shift": shift}  # the pass's span attributes
             # stage 1: per-tile counts, and each run's column sums where a
             # row holds several runs (each row is whole tiles: no tail pad);
             # a row of one run is summed in stage 2's one kernel, cheaper
             # than run sums as large as its counts
-            if Tr > histogram.run_tiles(Tr, tile):
-                counts, run_sums = histogram.digit_histogram_runs(
-                    bits_p, shift, width, tile, Tr)
-            else:
-                counts = histogram.digit_histogram(bits_p, shift, width, tile)
-                run_sums = None
-            mark("histogram")
+            with tracing.span("counting.histogram", **at):
+                if Tr > histogram.run_tiles(Tr, tile):
+                    counts, run_sums = histogram.digit_histogram_runs(
+                        bits_p, shift, width, tile, Tr)
+                else:
+                    counts = histogram.digit_histogram(bits_p, shift, width,
+                                                       tile)
+                    run_sums = None
             bits_p, src, moved = _pass(
                 bits_p, shift, width, counts.view(R, Tr, 1 << width), tile,
-                idx_dt, [arrays_p[k] for k in keep], bool(rest), mark,
-                run_sums)
-            for k, a in zip(keep, moved):
-                arrays_p[k] = a
-            for k in rest:
-                arrays_p[k] = common.take(arrays_p[k], src)
-                GATHERED += common.on_cuda(src)
-            mark("gathers")
+                idx_dt, [arrays_p[k] for k in keep], bool(rest), run_sums,
+                at)
+            with tracing.span("counting.gathers", **at):
+                for k, a in zip(keep, moved):
+                    arrays_p[k] = a
+                for k in rest:
+                    arrays_p[k] = common.take(arrays_p[k], src)
+                    GATHERED += common.on_cuda(src)
         out = [a.view(R, npad, *a.shape[1:])[:, :n].contiguous()
                for a in arrays_p]
     if not batched:

@@ -13,7 +13,10 @@ the source and the flags, so an edited source is rebuilt and an unchanged one
 is reused. The build writes a temporary file and renames it, so processes
 that build at once do not see a half-written library. nvcc's output (ptxas
 registers and spills per kernel function) is kept beside the library, in
-``<library>.log``, and read back when the library is reused.
+``<library>.log``, and read back when the library is reused. While
+:mod:`..tracing` records, a ``cuda_lib.build`` span covers each
+:func:`build` and each library's first :func:`load`, so a kernel built
+again shows.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from .. import tracing
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
@@ -66,6 +71,11 @@ def build(names) -> None:
     """Build the libraries of ``csrc/<name>.cu`` for every name that is not
     built yet, one ``nvcc`` process per source, all started together.
     Records each in :data:`BUILD_INFO`; raises if any build fails."""
+    with tracing.span("cuda_lib.build", n=len(names)):
+        _build(names)
+
+
+def _build(names) -> None:
     jobs = []
     for name in names:
         so = library_path(name)
@@ -106,8 +116,9 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LOADED.get(name)
     if lib is not None:
         return lib
-    if name not in BUILD_INFO:
-        build([name])
-    lib = ctypes.CDLL(BUILD_INFO[name]["path"])
+    with tracing.span("cuda_lib.build"):
+        if name not in BUILD_INFO:
+            build([name])
+        lib = ctypes.CDLL(BUILD_INFO[name]["path"])
     _LOADED[name] = lib
     return lib

@@ -25,6 +25,7 @@ import functools
 
 import torch
 
+from .. import tracing
 from . import common, cuda_lib
 
 DEFAULT_TILE = 1 << 13
@@ -134,11 +135,13 @@ def _launch_histogram(bits: torch.Tensor, shift: int, width: int,
     n = bits.shape[0]
     T = _num_tiles(n, tile)
     out = torch.empty((T, 1 << width), dtype=torch.int32, device=bits.device)
-    fn = _hist_fn()
-    with torch.cuda.device(bits.device):
-        stream = torch.cuda.current_stream(bits.device).cuda_stream
-        rc = fn(bits.data_ptr(), bits.dtype.itemsize, n, shift, width, tile,
-                T, out.data_ptr(), stream)
+    with tracing.span("launch.digit_histogram", n=n, shift=shift):
+        tracing.count("launches")
+        fn = _hist_fn()
+        with torch.cuda.device(bits.device):
+            stream = torch.cuda.current_stream(bits.device).cuda_stream
+            rc = fn(bits.data_ptr(), bits.dtype.itemsize, n, shift, width,
+                    tile, T, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"digit histogram kernel launch failed: CUDA error "
                            f"{rc} (n={n} shift={shift} width={width} "
@@ -226,12 +229,14 @@ def _launch_histogram_runs(bits: torch.Tensor, shift: int, width: int,
     counts = torch.empty((T, nb), dtype=torch.int32, device=bits.device)
     sums = torch.empty((T // tiles_per_row, -(-tiles_per_row // run), nb),
                        dtype=torch.int64, device=bits.device)
-    fn = _runs_fn()
-    with torch.cuda.device(bits.device):
-        stream = _stream(bits.device)
-        rc = fn(bits.data_ptr(), bits.dtype.itemsize, n, shift, width, tile,
-                T, tiles_per_row, run, counts.data_ptr(), sums.data_ptr(),
-                stream)
+    with tracing.span("launch.digit_histogram_runs", n=n, shift=shift):
+        tracing.count("launches")
+        fn = _runs_fn()
+        with torch.cuda.device(bits.device):
+            stream = _stream(bits.device)
+            rc = fn(bits.data_ptr(), bits.dtype.itemsize, n, shift, width,
+                    tile, T, tiles_per_row, run, counts.data_ptr(),
+                    sums.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"run-sum histogram kernel launch failed: CUDA "
                            f"error {rc} (n={n} shift={shift} width={width} "
@@ -354,12 +359,14 @@ def _launch_bucket_scan(counts: torch.Tensor, tile: int,
     else:
         _check_run_sums(counts, tile, run_sums)
         sums = run_sums
-    with torch.cuda.device(counts.device):
-        stream = _stream(counts.device)
-        rc = fn(counts.data_ptr(), R, Tr, width, tile, run, out.data_ptr(),
-                idx_dtype.itemsize,
-                sums.data_ptr() if sums is not None else None,
-                run_sums is not None, stream)
+    with tracing.span("launch.bucket_scan", n=out.numel()):
+        tracing.count("launches")
+        with torch.cuda.device(counts.device):
+            stream = _stream(counts.device)
+            rc = fn(counts.data_ptr(), R, Tr, width, tile, run,
+                    out.data_ptr(), idx_dtype.itemsize,
+                    sums.data_ptr() if sums is not None else None,
+                    run_sums is not None, stream)
     if rc != 0:
         raise RuntimeError(f"bucket scan kernel launch failed: CUDA error "
                            f"{rc} (rows={R} tiles={Tr} width={width} "

@@ -33,6 +33,12 @@ and ``"lsd_argsort"`` (``torch.sort``) take the same inputs and are always
 stable. ``"auto"`` follows the keys' device, as the JAX package follows
 the platform: the bitonic engine on CUDA tensors, ``"argsort"`` elsewhere.
 
+While :mod:`.tracing` records, each call of :func:`sort_keys`,
+:func:`sort_pairs` and :func:`sort_indices` is one span of that name, the
+root of a new call (validation, key bits, the network engine's word
+packing and unpacking, and the write-back are its own time), unless a
+span is already open, whose child it then is.
+
 ``donate=True`` is the reference's rule that the result replaces the input
 (tinyhipradixsort.hpp:936-943; the JAX package donates the buffers): the
 result is written into the caller's keys and value leaves, and those same
@@ -47,7 +53,7 @@ from __future__ import annotations
 
 import torch
 
-from . import keybits
+from . import keybits, tracing
 from .config import Config, SortOrder
 from .ops import argsort_engine, common, counting_engine, network_engine
 from .ops.bitonic_engine import EngineTuning
@@ -301,10 +307,12 @@ def sort_keys(keys, *, order="ascending", start_bit=0, end_bit=None,
     comes back as ``+0.0``. Ignored for integer keys and by the portable
     engines, which are always exact.
     """
-    keys, kw = _prep(keys, order, start_bit, end_bit, method, segment_ids,
-                     donate)
-    (out,) = _sort_entry(keys, None, want=("keys",), zeros_exact=zeros_exact,
-                         tuning=EngineTuning.from_env(), **kw)
+    with tracing.span("sort_keys"):
+        keys, kw = _prep(keys, order, start_bit, end_bit, method,
+                         segment_ids, donate)
+        (out,) = _sort_entry(keys, None, want=("keys",),
+                             zeros_exact=zeros_exact,
+                             tuning=EngineTuning.from_env(), **kw)
     return out
 
 
@@ -328,11 +336,12 @@ def sort_pairs(keys, values, *, order="ascending", start_bit=0, end_bit=None,
     leaves and returns them, in ``values``' structure. ``zeros_exact`` and
     ``segment_ids`` have :func:`sort_keys` semantics.
     """
-    keys, kw = _prep(keys, order, start_bit, end_bit, method, segment_ids,
-                     donate)
-    return _sort_entry(keys, values, want=("keys", "values"),
-                       zeros_exact=zeros_exact, stable=stable,
-                       tuning=EngineTuning.from_env(), **kw)
+    with tracing.span("sort_pairs"):
+        keys, kw = _prep(keys, order, start_bit, end_bit, method,
+                         segment_ids, donate)
+        return _sort_entry(keys, values, want=("keys", "values"),
+                           zeros_exact=zeros_exact, stable=stable,
+                           tuning=EngineTuning.from_env(), **kw)
 
 
 def sort_indices(keys, *, order="ascending", start_bit=0, end_bit=None,
@@ -341,10 +350,11 @@ def sort_indices(keys, *, order="ascending", start_bit=0, end_bit=None,
     the per-row permutation). int32 for n < 2**31, else int64.
     ``donate=True`` lets the sort use the keys as scratch: their content
     afterwards is unspecified."""
-    keys, kw = _prep(keys, order, start_bit, end_bit, method, segment_ids,
-                     donate)
-    (perm,) = _sort_entry(keys, None, want=("indices",),
-                          tuning=EngineTuning.from_env(), **kw)
+    with tracing.span("sort_indices"):
+        keys, kw = _prep(keys, order, start_bit, end_bit, method,
+                         segment_ids, donate)
+        (perm,) = _sort_entry(keys, None, want=("indices",),
+                              tuning=EngineTuning.from_env(), **kw)
     return perm
 
 
