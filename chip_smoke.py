@@ -71,8 +71,8 @@ Phases, one output line each (time, kernel launches, result):
    bit-equal and contiguous; then
    ``rank_scatter`` through the kernel and through
    ``rank_scatter_reference`` (2**28 u32 at width 8 and tile 2048: the
-   sort_keys pass with the keys carried, the sort_pairs pass with two
-   payloads, bits + src; payload rows of 1, 2, 4, 8 and 16 bytes, four at
+   sort_keys pass on the bits alone, the sort_pairs pass with the values
+   as one payload, two payloads, bits + src; payload rows of 1, 2, 4, 8 and 16 bytes, four at
    once; src written or not; a u64 pass with a u64 payload; 3- and 1-bit
    digits; rows whose last chunk holds fewer tiles; padded row tails;
    int64 src; a multi-chunk tile; an odd tile; skewed digits), the bits,
@@ -97,12 +97,12 @@ Phases, one output line each (time, kernel launches, result):
    the copy that made the earlier stage 2's offsets contiguous timed
    alone; the rank-and-scatter kernel
    on one pass at 2**28 (width 8, tile 2048) for each set of output
-   streams (``STREAM_ROWS``: bits; + src; + a u32 payload, the sort_keys
-   pass; + src + a u32 payload; + a 16-byte payload; u64 bits + a u64
-   payload; u64 bits + src; bits and bits + src on digits that fill whole
-   aligned lines), each with its bytes, its bound and its share
-   of it, three of them beside the plain version and torch.sort of the
-   uint8 digits; counting sort_keys u32 and sort_pairs u32+u32 at 2**28
+   streams (``STREAM_ROWS``: bits, the sort_keys pass; + src; + a u32
+   payload, the sort_pairs pass; + src + a u32 payload; + a 16-byte
+   payload; u64 bits + a u64 payload; u64 bits + src; bits and bits + src
+   on digits that fill whole aligned lines), each with its bytes, its
+   bound and its share of it, four of them beside the plain version and
+   torch.sort of the uint8 digits; counting sort_keys u32 and sort_pairs u32+u32 at 2**28
    (checked against torch.sort, required to launch the three counting
    kernels, stage 2 on the run sums with no run_sum_kernel in the
    profiler's trace, to call no torch.cumsum and to gather nothing:
@@ -1392,8 +1392,10 @@ def rank_scatter_cases():
     bytes, want_src)."""
     i32, i64 = torch.int32, torch.int64
     return [
-        # the main path's passes: sort_keys (the keys as one 4-byte
-        # payload, no src) and sort_pairs u32+u32 (two payloads)
+        # the main path's passes: sort_keys (the bits alone: no payload,
+        # no src; the keys come back from the sorted bits), sort_pairs
+        # u32+u32 (the values as one 4-byte payload), and two payloads
+        (1 << 28, False, 0, 8, 2048, 1, i32, "random", (), False),
         (1 << 28, False, 0, 8, 2048, 1, i32, "random", (4,), False),
         (1 << 28, False, 24, 8, 2048, 1, i32, "random", (4, 4), False),
         (1 << 28, False, 0, 8, 2048, 1, i32, "random", (), True),  # src
@@ -1860,9 +1862,10 @@ def rank_scatter_ops(width: int) -> int:
 #: keys, payload row bytes, want_src). Keys "u32" and "u64" are random;
 #: "runs" are u32 whose digits each fill a whole aligned 128-byte line of
 #: every output stream a chunk (digit (97 i) mod 256: each digit 32 times in
-#: every 8192 words), so no write is a partial sector. The third row is the
-#: sort_keys pass (the keys carried, no src), the second the outputs of the
-#: kernel before payloads.
+#: every 8192 words), so no write is a partial sector. The first row is the
+#: sort_keys pass (the bits alone: no payload, no src), the third the
+#: sort_pairs u32+u32 pass (the values as one payload), the second the
+#: outputs of the kernel before payloads.
 STREAM_ROWS = [("bits", "u32", (), False),
                ("bits + src", "u32", (), True),
                ("bits + 1 u32 payload", "u32", (4,), False),
@@ -1886,9 +1889,10 @@ def phase_rank_scatter_timing(x: torch.Tensor, card: str) -> dict:
     """One pass of the rank-and-scatter kernel at the main path's shape
     (2**28 words, shift 0, width 8, tile 2048) for each set of output
     streams of STREAM_ROWS, with its bytes, its bound and its share of it;
-    the sort_keys pass, bits + src and u64 bits + src also beside the plain
-    version and torch.sort of the digits as uint8 (whose indices are src
-    for one row). Returns the sort_keys pass's numbers for the report."""
+    the sort_keys and sort_pairs passes, bits + src and u64 bits + src
+    also beside the plain version and torch.sort of the digits as uint8
+    (whose indices are src for one row). Returns the sort_keys pass's
+    numbers (the "bits" row) for the report."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 10)
     tile, width, n = counting_engine.DEFAULT_TILE, 8, x.shape[0]
@@ -1913,7 +1917,8 @@ def phase_rank_scatter_timing(x: torch.Tensor, card: str) -> dict:
                        ops / H100_INT_OPS_PER_S) * 1e3
         extra = ""
         row = {"ms": ms, "bytes": moved, "ops": ops, "bound_ms": bound_ms}
-        if label in ("bits + src", "bits + 1 u32 payload", "u64 bits + src"):
+        if label in ("bits", "bits + src", "bits + 1 u32 payload",
+                     "u64 bits + src"):
             row["plain_ms"] = cuda_ms(
                 lambda: counting_engine.rank_scatter_reference(*args), 3)
             digits = (bits & 0xFF).to(torch.uint8)
@@ -1937,7 +1942,7 @@ def phase_rank_scatter_timing(x: torch.Tensor, card: str) -> dict:
             f"kernel at "
             f"{100 * bound_ms / ms:.1f}% of it{extra}; median of 5, CUDA "
             f"events; card: {card}")
-        if label == "bits + 1 u32 payload":
+        if label == "bits":
             result = row
         del base, payloads, args
     words.clear()
@@ -2014,7 +2019,8 @@ def phase_counting_timing(x: torch.Tensor, bitonic_ms, card: str) -> None:
     against torch.sort, the three counting kernels launched (stage 2 given
     stage 1's run sums: the counts read once, SCAN_SUM_WALKS unchanged,
     no run_sum_kernel in the trace), nothing gathered (the kernel carries
-    the keys and the values); timed, and broken down by stage."""
+    the values; the keys come back from the sorted bits); timed, and
+    broken down by stage as the API calls the engine."""
     n = x.shape[0]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 13)
@@ -2082,12 +2088,13 @@ def phase_counting_timing(x: torch.Tensor, bitonic_ms, card: str) -> None:
         f"card: {card}")
     bits = keybits.key_bits(x)
     _stage_breakdown(lambda: counting_engine.sort_arrays_counting(
-        bits, [x], 0, 32), card, "sort_keys u32")
+        bits, [], 0, 32, with_bits=True), card, "sort_keys u32")
     _stage_breakdown(lambda: counting_engine.sort_arrays_counting(
-        bits, [x, vals], 0, 32), card, "sort_pairs u32+u32")
+        bits, [vals], 0, 32, with_bits=True), card, "sort_pairs u32+u32")
     with _earlier_stage2():
         _stage_breakdown(lambda: counting_engine.sort_arrays_counting(
-            bits, [x], 0, 32), card, "sort_keys u32 (earlier stage 2)")
+            bits, [], 0, 32, with_bits=True), card,
+            "sort_keys u32 (earlier stage 2)")
     del bits
     # the row cells of phase 5 (rows of at most 128 tiles: one scan kernel)
     rows = [x[:1 << 24].view(4096, 4096), x[:1 << 24].view(16384, 1024),
@@ -2319,8 +2326,8 @@ def rank_scatter_ab(x: torch.Tensor, parent_src: str, card: str) -> None:
     parent commit's, with the C interface before payloads), in one
     process, in turns
     (parent, change, change, parent), at 2**28 width 8 tile 2048: bits +
-    src (u32 and u64), and the sort_keys pass, which the parent does as
-    bits + src and a gather of the keys by src."""
+    src (u32 and u64), and bits with the keys as one payload, which the
+    parent does as bits + src and a gather of the keys by src."""
     parent = _parent_rank_scatter(parent_src)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 12)
@@ -2357,8 +2364,8 @@ def rank_scatter_ab(x: torch.Tensor, parent_src: str, card: str) -> None:
             raise AssertionError("parent and change disagree")
         rows = [("bits + src", old, new)]
         if not wide:
-            rows.append(("sort_keys pass (keys carried; parent: bits + src "
-                         "and a gather of the keys)", old_keys, new_keys))
+            rows.append(("bits + the keys as a payload (parent: bits + "
+                         "src and a gather of the keys)", old_keys, new_keys))
         for label, a, b in rows:
             t = [cuda_ms(f, 5) for f in (a, b, b, a)]
             log("10 ab", f"rank_scatter {'u64' if wide else 'u32'} {label} "
@@ -3111,8 +3118,9 @@ def main() -> int:
         entry("bucket_scan", scan_launches + scan_harness, scan_err,
               sc["ms"], sc["plain_ms"], bound(sc["bytes"], sc["ops"]),
               sc["library_ms"]),
-        # the sort_keys pass at 2**28 u32 (the keys carried, no src; its
-        # library call, torch.sort of the uint8 digits, computes src only);
+        # the sort_keys pass at 2**28 u32 (the bits alone: no payload, no
+        # src; its library call, torch.sort of the uint8 digits, computes
+        # src too);
         # launches: the counting paths of phases 8 and 13
         entry("rank_scatter", rs_launches + rs_harness, rs_err, r["ms"],
               r["plain_ms"], bound(r["bytes"], r["ops"]), r["library_ms"]),

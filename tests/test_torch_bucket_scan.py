@@ -134,13 +134,12 @@ def test_counting_pass_matches_the_jax_pass(R):
     x = rng.integers(0, 2**32, size=R * Tr * TILE, dtype=np.uint32)
     x[::5] = x[3]  # ties: stability decides
     bits = torch.from_numpy(x.view(np.int32).copy())
-    counts = th.digit_histogram(bits, shift, width, TILE)
     with tracing.record() as rec:
-        bits_out, src, moved = tce._pass(
-            bits, shift, width, counts.view(R, Tr, 1 << width), TILE,
-            torch.int32, [], True)
+        bits_out, src, moved = tce._pass(bits, shift, width, R, TILE,
+                                         torch.int32, [], True)
     stages = [s.name for s in rec.spans if s.name.startswith("counting.")]
-    assert stages == ["counting.scan", "counting.rank_scatter"]
+    assert stages == ["counting.histogram", "counting.scan",
+                      "counting.rank_scatter"]
     assert moved == []
     digits = ((x >> shift) & 0xFF).reshape(R, Tr, TILE)
     want = _jax_src(digits, R, TILE, width)
@@ -149,17 +148,24 @@ def test_counting_pass_matches_the_jax_pass(R):
 
 
 @pytest.mark.parametrize("R", [1, 2], ids=["one-row", "batched"])
-def test_counting_pass_with_run_sums_matches_the_jax_pass(R):
+def test_counting_pass_with_run_sums_matches_the_jax_pass(R, monkeypatch):
     # rows of 130 tiles: runs of 128 and of 2
     shift, width, Tr = 0, 8, 130
     rng = np.random.default_rng([RNG_SEED, R, Tr])
     x = rng.integers(0, 2**32, size=R * Tr * TILE, dtype=np.uint32)
     x[::3] = x[1]  # ties: stability decides
     bits = torch.from_numpy(x.view(np.int32).copy())
-    counts, sums = th.digit_histogram_runs(bits, shift, width, TILE, Tr)
-    bits_out, src, _ = tce._pass(
-        bits, shift, width, counts.view(R, Tr, 1 << width), TILE,
-        torch.int32, [], True, sums)
+    calls = []
+    real = th.digit_histogram_runs
+
+    def counted(*args):
+        calls.append(args[1:])
+        return real(*args)
+
+    monkeypatch.setattr(th, "digit_histogram_runs", counted)
+    bits_out, src, _ = tce._pass(bits, shift, width, R, TILE, torch.int32,
+                                 [], True)
+    assert calls == [(shift, width, TILE, Tr)]
     want = _jax_src(((x >> shift) & 0xFF).reshape(R, Tr, TILE), R, TILE,
                     width)
     np.testing.assert_array_equal(src.numpy(), want)

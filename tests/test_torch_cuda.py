@@ -678,15 +678,47 @@ def test_counting_engine_gathers_only_what_it_cannot_carry(cuda):
     np.testing.assert_array_equal(k.cpu().numpy(), x[perm])
     np.testing.assert_array_equal(got_k.cpu().numpy(), x[perm])
     np.testing.assert_array_equal(got_v.cpu().numpy(), v[perm])
-    # five arrays: the keys and three leaves ride, the fourth leaf is
-    # gathered
+    # five leaves: the keys come back from the sorted bits, four leaves
+    # ride, the fifth is gathered
     leaves = tuple(torch.from_numpy(v + np.uint32(i)).to(cuda)
-                   for i in range(4))
+                   for i in range(5))
     _, out = tthrs.sort_pairs(xd, leaves, method="counting")
     assert tce.GATHERED == before[0] + 4  # one array, four passes
     for i, leaf in enumerate(out):
         np.testing.assert_array_equal(leaf.cpu().numpy(),
                                       (v + np.uint32(i))[perm])
+
+
+@pytest.mark.parametrize("api,words", [("sort_keys", 0), ("sort_pairs", 1)])
+def test_counting_reads_whole_tiles_where_they_lie_on_the_card(cuda, api,
+                                                               words):
+    # 2**20 keys are whole tiles: the passes read the keys where they lie
+    # and carry only the values; slices 4 bytes into their storage are
+    # each copied once, to the kernel's 16-byte alignment
+    n = 1 << 20
+    rng = np.random.default_rng(22)
+    x, v = rng.integers(0, 2**32, size=(2, n + 1), dtype=np.uint32)
+    xd, vd = torch.from_numpy(x).to(cuda), torch.from_numpy(v).to(cuda)
+    for lo in (0, 1):
+        args = (xd[lo:lo + n], vd[lo:lo + n])[:1 + words]
+        before = [a.view(torch.int32).clone() for a in args]
+        with tracing.record() as rec:
+            got = getattr(tthrs, api)(*args, method="counting")
+        got = got if isinstance(got, tuple) else (got,)
+        spans = [s for s in rec.spans if s.name == "launch.rank_scatter"]
+        assert [s.attrs["words"] for s in spans] == [words] * 4
+        assert rec.counts.get((1, "counting.pad_copies"), 0) == lo * (
+            1 + words)
+        perm = np.argsort(x[lo:lo + n], kind="stable")
+        np.testing.assert_array_equal(got[0].cpu().numpy(), x[lo:lo + n][perm])
+        if words:
+            np.testing.assert_array_equal(got[1].cpu().numpy(),
+                                          v[lo:lo + n][perm])
+        for a, b in zip(args, before):
+            assert torch.equal(a.view(torch.int32), b)
+            for out in got:
+                assert (out.untyped_storage().data_ptr()
+                        != a.untyped_storage().data_ptr())
 
 
 def test_rank_scatter_kernel_refuses_what_it_does_not_take(cuda):

@@ -12,9 +12,10 @@ import torch
 
 import tinyhipradixsort_torch as tthrs
 import tinyhipradixsort_tpu as jthrs
-from tests.test_torch_engines import METHODS, check_port
+from tests.test_torch_engines import DTYPES, METHODS, check_port
 from tests.torch_helpers import assert_bits_equal, rand_keys, to_torch
 from tinyhipradixsort_torch import sort as tsort
+from tinyhipradixsort_torch import tracing
 from tinyhipradixsort_torch.ops import counting_engine
 from tinyhipradixsort_torch.ops import histogram as th
 
@@ -199,3 +200,105 @@ def test_non_tensor_inputs_go_to_the_cuda_device(monkeypatch):
     t = torch.arange(3)
     assert tsort._as_input(t, "keys") is t  # tensors keep their device
     assert seen == ["cuda", "cuda"]
+
+
+@pytest.mark.parametrize("n", [4096, 3000], ids=["whole-tiles", "ragged"])
+@pytest.mark.parametrize("order", ["ascending", "descending"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
+def test_counting_keys_from_the_sorted_bits_equal_argsorts(dtype, order, n):
+    # counting rebuilds the keys from its sorted bits (float keys with a
+    # -0.0 flag: rand_keys holds -0.0, +0.0 and NaNs of distinct payloads);
+    # argsort carries the keys themselves
+    rng = np.random.default_rng([n, len(order), np.dtype(dtype).itemsize])
+    x = rand_keys(rng, dtype, n)
+    x[::7] = x[3]  # ties: stability decides
+    xt = to_torch(x)
+    want = tthrs.sort_keys(xt, order=order, method="argsort")
+    assert_bits_equal(tthrs.sort_keys(xt, order=order, method="counting"),
+                      want)
+    k, v = tthrs.sort_pairs(xt, torch.arange(n), order=order,
+                            method="counting")
+    assert_bits_equal(k, want)
+    assert_bits_equal(xt[v], want)
+    assert_bits_equal(xt, x, "inputs are never modified")
+
+
+_VIEWS = {
+    "n=0": lambda a: a[:0],
+    "n=1": lambda a: a[:1],
+    "n=2048": lambda a: a[:2048],
+    "rows": lambda a: a[:3 * 2048].view(3, 2048),
+    "non-contiguous": lambda a: a[::2],
+    "offset-slice": lambda a: a[1:2049],
+}
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.float32],
+                         ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("view", list(_VIEWS))
+def test_counting_outputs_share_no_memory_with_inputs(view, dtype):
+    # u32 bits are a view of the keys, and whole tiles go to the first
+    # pass where they lie: every output must still be fresh memory
+    rng = np.random.default_rng(len(view))
+    keys = to_torch(rand_keys(rng, dtype, 8192))
+    vals = torch.from_numpy(rng.integers(-2**31, 2**31, size=8192,
+                                         dtype=np.int32))
+    saved = keys.clone(), vals.clone()
+    k, v = _VIEWS[view](keys), _VIEWS[view](vals)
+    outs, wants = [], []
+    for method, got in (("counting", outs), ("argsort", wants)):
+        got.append(tthrs.sort_keys(k, method=method))
+        got.extend(tthrs.sort_pairs(k, v, method=method))
+        got.append(tthrs.sort_indices(k, method=method))
+    for got, want in zip(outs, wants):
+        assert_bits_equal(got, want)
+        if got.numel():
+            for a in (keys, vals):
+                assert (got.untyped_storage().data_ptr()
+                        != a.untyped_storage().data_ptr())
+    assert_bits_equal(keys, saved[0])
+    assert_bits_equal(vals, saved[1])
+
+
+def test_counting_refuses_an_empty_window_before_any_copy():
+    x = to_torch(rand_keys(np.random.default_rng(9), np.uint32, 3000))
+    with tracing.record() as rec:
+        with pytest.raises(ValueError, match="bit window"):
+            tthrs.sort_keys(x, start_bit=8, end_bit=8, method="counting")
+        with pytest.raises(ValueError, match="bit window"):
+            counting_engine.sort_arrays_counting(x.view(torch.int32), [x],
+                                                 8, 8)
+    assert rec.counts == {}
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.int32, np.uint64, np.int64,
+                                   np.uint16, np.int16, np.float32,
+                                   np.float64],
+                         ids=lambda d: np.dtype(d).name)
+def test_counting_hands_rank_scatter_what_the_bits_cannot_rebuild(
+        dtype, monkeypatch):
+    # integer keys come back from the sorted bits alone, float keys with a
+    # 1-byte -0.0 flag; sort_pairs adds its values
+    seen = []
+    real = counting_engine.rank_scatter
+
+    def spy(bits, shift, width, base, tile, idx_dtype, payloads=(),
+            want_src=True):
+        seen.append([counting_engine.payload_row_bytes(p, bits.shape[0])
+                     for p in payloads])
+        return real(bits, shift, width, base, tile, idx_dtype, payloads,
+                    want_src)
+
+    monkeypatch.setattr(counting_engine, "rank_scatter", spy)
+    rng = np.random.default_rng(np.dtype(dtype).itemsize)
+    x = to_torch(rand_keys(rng, dtype, 4096))
+    flag = [1] if np.dtype(dtype).kind == "f" else []
+    passes = np.dtype(dtype).itemsize  # one 8-bit digit a byte
+    want = tthrs.sort_keys(x, method="argsort")
+    assert_bits_equal(tthrs.sort_keys(x, method="counting"), want)
+    assert seen == [flag] * passes
+    seen.clear()
+    k, _ = tthrs.sort_pairs(x, torch.arange(4096, dtype=torch.int32),
+                            method="counting")
+    assert_bits_equal(k, want)
+    assert seen == [flag + [4]] * passes

@@ -110,6 +110,21 @@ def test_counting_records_four_stage_spans_a_pass(window, passes):
     assert got.shape == (3000,)
 
 
+@pytest.mark.parametrize("api", ["sort_keys", "sort_pairs"])
+@pytest.mark.parametrize("n,copies", [(4096, 0), (3000, 1)],
+                         ids=["whole-tiles", "ragged"])
+def test_counting_counts_the_arrays_its_pad_stage_copies(n, copies, api):
+    # whole tiles are read where they lie; a ragged n pads the bits and
+    # each array (the values of sort_pairs; the keys come from the bits)
+    args = (_keys(n), torch.arange(n)) if api == "sort_pairs" \
+        else (_keys(n),)
+    with tracing.record() as rec:
+        getattr(tthrs, api)(*args, method="counting")
+    got = rec.counts.get((1, "counting.pad_copies"), 0)
+    assert got == copies * len(args)
+    assert [s.name for s in rec.spans].count("counting.pad") == 1
+
+
 @pytest.mark.parametrize("method", METHODS)
 def test_the_layers_sum_to_the_root_span(method):
     with tracing.record() as rec:

@@ -152,11 +152,13 @@ def key_bits_inverse(bits: torch.Tensor, dtype: torch.dtype, *,
         key_bits_inverse_raw(bits, dtype, descending=descending), dtype)
 
 
-def neg_zero_flag(keys: torch.Tensor) -> torch.Tensor:
-    """int32 1 where the float key is bitwise ``-0.0``, else 0."""
+def neg_zero_flag(keys: torch.Tensor,
+                  dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """1 (``True``) in ``dtype`` where the float key is bitwise ``-0.0``,
+    else 0."""
     nbits = keys.dtype.itemsize * 8
     wdt = {16: torch.int16, 32: torch.int32, 64: torch.int64}[nbits]
-    return (keys.view(wdt) == -(1 << (nbits - 1))).to(torch.int32)
+    return (keys.view(wdt) == -(1 << (nbits - 1))).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,9 @@ kernel.cu:73-103/136-204/206-429):
 Padding sorts to the tail: all-ones bits take the top digit in every pass,
 and stability keeps them after every real element. Batched ``(B, n)`` rows
 are padded row by row, so each row owns a range of whole tiles and one pass
-sorts every row at once (the JAX package vmaps the row sort).
+sorts every row at once (the JAX package vmaps the row sort). Rows that are
+already whole tiles are not copied: the first pass reads them where they
+lie and writes fresh outputs.
 """
 
 from __future__ import annotations
@@ -80,6 +82,17 @@ def _pad_rows(a: torch.Tensor, multiple: int, fill: int) -> torch.Tensor:
     out[:, :n] = a
     out[:, n:] = fill
     return out
+
+
+def _stage(a: torch.Tensor, tile: int, fill: int) -> torch.Tensor:
+    """Batched ``(B, n, ...)`` ``a`` as the first pass reads it: padded
+    into a fresh copy (:func:`_pad_rows`) where ``n`` is not whole tiles,
+    else where it lies, made contiguous and aligned only where it is not
+    (:func:`_aligned`). Each copy counts once in ``counting.pad_copies``."""
+    staged = _pad_rows(a, tile, fill) if a.shape[1] % tile else _aligned(a)
+    if staged is not a:
+        tracing.count("counting.pad_copies")
+    return staged
 
 
 def _tile_ranks(digits: torch.Tensor, num_buckets: int) -> torch.Tensor:
@@ -263,18 +276,34 @@ def rank_scatter(bits: torch.Tensor, shift: int, width: int,
                                   payloads, want_src)
 
 
-def _pass(bits, shift: int, width: int, counts, tile: int, idx_dt, payloads,
-          want_src: bool, run_sums=None, at=None):
-    """One pass of R rows of Tr tiles: ``bits`` flat, its per-tile counts
-    ``(R, Tr, 2**width)`` and their run sums (consumed, see
-    :func:`histogram.bucket_offsets`) -> :func:`rank_scatter`'s
-    ``(bits_out, src, moved)``, ``src`` indexing the flat rows with ``out =
-    x[src]``. ``at``: the pass's span attributes."""
+def _pass(bits, shift: int, width: int, rows: int, tile: int, idx_dt,
+          payloads, want_src: bool, at=None):
+    """One pass over ``rows`` rows of whole tiles of the flat ``bits``:
+    stage 1's per-tile counts, stage 2's offsets from them, and
+    :func:`rank_scatter`'s ``(bits_out, src, moved)``, ``src`` indexing
+    the flat rows with ``out = x[src]``. ``at``: the pass's span
+    attributes."""
     at = at or {}
+    Tr = bits.shape[0] // (rows * tile)
+    # stage 1: per-tile counts, and each run's column sums where a row
+    # holds several runs (each row is whole tiles: no tail pad); a row of
+    # one run is summed in stage 2's one kernel, cheaper than run sums as
+    # large as its counts
+    with tracing.span("counting.histogram", **at):
+        if Tr > histogram.run_tiles(Tr, tile):
+            counts, run_sums = histogram.digit_histogram_runs(
+                bits, shift, width, tile, Tr)
+        else:
+            counts = histogram.digit_histogram(bits, shift, width, tile)
+            run_sums = None
     # stage 2: each row's bucket-major exclusive scan, offset to its range
+    # (the run sums are consumed, see histogram.bucket_offsets)
     with tracing.span("counting.scan", **at):
-        base = histogram.bucket_offsets(counts, tile, idx_dt,
-                                        run_sums=run_sums)
+        base = histogram.bucket_offsets(counts.view(rows, Tr, 1 << width),
+                                        tile, idx_dt, run_sums=run_sums)
+    # stage 3 reads the offsets alone: the counts are not live beside its
+    # outputs, the pass's peak
+    del counts, run_sums
     with tracing.span("counting.rank_scatter", **at):
         return rank_scatter(bits, shift, width, base, tile, idx_dt, payloads,
                             want_src)
@@ -291,9 +320,12 @@ def carried(arrays, n: int) -> list[int]:
 
 def sort_arrays_counting(bits, arrays, start_bit: int, end_bit: int,
                          radix_bits: int = common.RADIX_BITS,
-                         tile: int = DEFAULT_TILE):
+                         tile: int = DEFAULT_TILE, with_bits: bool = False):
     """Stable sort of ``arrays`` by the window ``[start_bit, end_bit)`` of
-    ``bits`` (``(n,)``, or ``(B, n)`` rows sorted each on its own).
+    ``bits`` (``(n,)``, or ``(B, n)`` rows sorted each on its own): the
+    sorted arrays, and with ``with_bits`` the sorted bits after them (a
+    caller can rebuild its keys from those instead of passing them as an
+    array). No output shares memory with ``bits`` or an array.
 
     ``tile`` must be a histogram tile (:func:`histogram.round_tile` leaves it
     as it is), and ``radix_bits`` at most :data:`histogram.SCAN_MAX_WIDTH`
@@ -304,8 +336,9 @@ def sort_arrays_counting(bits, arrays, start_bit: int, end_bit: int,
     left over, and the leftovers are gathered by it.
 
     While :mod:`..tracing` records, the sort is the span ``counting.sort``
-    and its stages its children: ``counting.pad``, then in each pass
-    (attributes ``pass`` and ``shift``) ``counting.histogram``,
+    and its stages its children: ``counting.pad`` (:func:`_stage`, which
+    counts the arrays it copies in ``counting.pad_copies``), then in each
+    pass (attributes ``pass`` and ``shift``) ``counting.histogram``,
     ``counting.scan``, ``counting.rank_scatter`` and ``counting.gathers``.
     """
     if tile != histogram.round_tile(tile):
@@ -313,10 +346,11 @@ def sort_arrays_counting(bits, arrays, start_bit: int, end_bit: int,
                          "of 128 in [1024, 2**22])")
     with tracing.span("counting.sort", n=bits.shape[-1], words=len(arrays)):
         return _sort_counting(bits, arrays, start_bit, end_bit, radix_bits,
-                              tile)
+                              tile, with_bits)
 
 
-def _sort_counting(bits, arrays, start_bit, end_bit, radix_bits, tile):
+def _sort_counting(bits, arrays, start_bit, end_bit, radix_bits, tile,
+                   with_bits):
     """:func:`sort_arrays_counting` inside its span."""
     global GATHERED
     batched = bits.ndim == 2
@@ -325,37 +359,26 @@ def _sort_counting(bits, arrays, start_bit, end_bit, radix_bits, tile):
         arrays = [a.unsqueeze(0) for a in arrays]
     R, n = bits.shape
     if n <= 1 or R == 0:
-        out = [a.clone() for a in arrays]
+        # nothing moves; copies, since the bits can be a view of the keys
+        out = [a.clone() for a in arrays + [bits] * with_bits]
     else:
+        plan = common.digit_plan(start_bit, end_bit, radix_bits)
+        # every pass writes fresh outputs, so the first reads its inputs
+        # where they lie unless a row must be padded
         with tracing.span("counting.pad"):
-            bits_p = _pad_rows(bits, tile, -1)
-            arrays_p = [_pad_rows(a, tile, 0) for a in arrays]
+            bits_p = _stage(bits, tile, -1)
+            arrays_p = [_stage(a, tile, 0) for a in arrays]
         npad = bits_p.shape[1]
         idx_dt = _index_dtype(R * npad)
-        Tr = npad // tile
         bits_p = bits_p.view(-1)
         arrays_p = [a.view(R * npad, *a.shape[2:]) for a in arrays_p]
         keep = carried(arrays_p, R * npad)
         rest = [k for k in range(len(arrays_p)) if k not in keep]
-        plan = common.digit_plan(start_bit, end_bit, radix_bits)
         for i, (shift, width) in enumerate(plan):
             at = {"pass": i, "shift": shift}  # the pass's span attributes
-            # stage 1: per-tile counts, and each run's column sums where a
-            # row holds several runs (each row is whole tiles: no tail pad);
-            # a row of one run is summed in stage 2's one kernel, cheaper
-            # than run sums as large as its counts
-            with tracing.span("counting.histogram", **at):
-                if Tr > histogram.run_tiles(Tr, tile):
-                    counts, run_sums = histogram.digit_histogram_runs(
-                        bits_p, shift, width, tile, Tr)
-                else:
-                    counts = histogram.digit_histogram(bits_p, shift, width,
-                                                       tile)
-                    run_sums = None
             bits_p, src, moved = _pass(
-                bits_p, shift, width, counts.view(R, Tr, 1 << width), tile,
-                idx_dt, [arrays_p[k] for k in keep], bool(rest), run_sums,
-                at)
+                bits_p, shift, width, R, tile, idx_dt,
+                [arrays_p[k] for k in keep], bool(rest), at)
             with tracing.span("counting.gathers", **at):
                 for k, a in zip(keep, moved):
                     arrays_p[k] = a
@@ -363,7 +386,7 @@ def _sort_counting(bits, arrays, start_bit, end_bit, radix_bits, tile):
                     arrays_p[k] = common.take(arrays_p[k], src)
                     GATHERED += common.on_cuda(src)
         out = [a.view(R, npad, *a.shape[1:])[:, :n].contiguous()
-               for a in arrays_p]
+               for a in arrays_p + [bits_p] * with_bits]
     if not batched:
         out = [a[0] for a in out]
     return out

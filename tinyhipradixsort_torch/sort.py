@@ -67,6 +67,9 @@ _PORTABLE = {
     "lsd_argsort": argsort_engine.sort_arrays_lsd_argsort,
     "counting": counting_engine.sort_arrays_counting,
 }
+#: portable engines that can hand back their sorted bits (``with_bits=``),
+#: so the keys are rebuilt from them instead of carried through the passes
+_FROM_BITS = frozenset({"counting"})
 _INT_DTYPES = (torch.int8, torch.uint8, torch.int16, torch.uint16,
                torch.int32, torch.uint32, torch.int64, torch.uint64)
 
@@ -173,36 +176,54 @@ def _sort_portable(keys, leaves, *, method, descending, start_bit, end_bit,
     # 16-bit float keys ride as their bits plus a -0.0 flag and are rebuilt
     # in the integer domain after the sort, as in the JAX package
     f16_keys = "keys" in want and keys.dtype in (torch.float16, torch.bfloat16)
+    # an engine of _FROM_BITS hands back its sorted bits and the other keys
+    # are rebuilt from them, so a pass moves each key's bytes once; float
+    # keys carry a 1-byte -0.0 flag, since the bits normalise -0.0 to +0.0
+    from_bits = "keys" in want and method in _FROM_BITS and not f16_keys
+    float_flag = from_bits and keys.dtype.is_floating_point
     arrays = []
-    if "keys" in want:
-        arrays += [bits, keybits.neg_zero_flag(keys)] if f16_keys else [keys]
+    if f16_keys:
+        arrays += [bits, keybits.neg_zero_flag(keys)]
+    elif float_flag:
+        arrays.append(keybits.neg_zero_flag(keys, torch.bool))
+    elif "keys" in want and not from_bits:
+        arrays.append(keys)
     arrays += leaves
     if "indices" in want:
         n = keys.shape[-1]
         idx_dt = torch.int32 if n < 2**31 else torch.int64
         arrays.append(torch.arange(n, dtype=idx_dt, device=keys.device)
                       .expand(keys.shape))
+    kw = {"with_bits": True} if from_bits else {}
     if seg is None:
-        out = engine(bits, arrays, start_bit, end_bit)
+        out = engine(bits, arrays, start_bit, end_bit, **kw)
     else:
         # segmented: two stable passes (LSD composition), by the key bits,
-        # then by the segment bits
+        # then by the segment bits, which the first carries in front; the
+        # key bits it sorts come last and ride through the second
         seg_bits = keybits.key_bits(seg)
-        out = engine(bits, arrays + [seg_bits], start_bit, end_bit)
-        out = engine(out[-1], out[:-1], 0, seg_bits.dtype.itemsize * 8)
+        out = engine(bits, [seg_bits] + arrays, start_bit, end_bit, **kw)
+        out = engine(out[0], out[1:], 0, seg_bits.dtype.itemsize * 8)
 
     result = []
     pos = 0
-    if "keys" in want:
-        if f16_keys:
-            raw = keybits.key_bits_inverse_raw(out[0], keys.dtype,
-                                               descending=descending)
-            raw = torch.where(out[1] == 1, raw | 0x8000, raw)
-            result.append(keybits.raw_to_keys(raw, keys.dtype))
-            pos = 2
-        else:
-            result.append(out[0])
+    if f16_keys:
+        raw = keybits.key_bits_inverse_raw(out[0], keys.dtype,
+                                           descending=descending)
+        raw = torch.where(out[1] == 1, raw | 0x8000, raw)
+        result.append(keybits.raw_to_keys(raw, keys.dtype))
+        pos = 2
+    elif from_bits:
+        raw = keybits.key_bits_inverse_raw(out.pop(), keys.dtype,
+                                           descending=descending)
+        if float_flag:
+            sign = -(1 << (keys.dtype.itemsize * 8 - 1))
+            raw = torch.where(out[0], raw | sign, raw)
             pos = 1
+        result.append(keybits.raw_to_keys(raw, keys.dtype))
+    elif "keys" in want:
+        result.append(out[0])
+        pos = 1
     if "values" in want:
         result.append(out[pos:pos + len(leaves)])
         pos += len(leaves)
