@@ -137,7 +137,16 @@ Phases, one output line each (time, kernel launches, result):
    runs of length cap, and the rebalance merge of a kept run with 8 pieces
    of length cap3, on (key, index) tuples and on the key word alone, each
    timed and bit-equal to a stable torch.sort lexsort of the same words,
-   each merge's route read at the engine's MARK hook;
+   each merge's route read at the engine's MARK hook; then psort_keys on
+   a group of every card this process sees (CUDA_VISIBLE_DEVICES as the
+   caller gave it, card 0 alone where it is not set), up to 4, one
+   process a card over NCCL (``phase_psort_group``): 2**28 zipf keys a
+   rank, each rank's share bit-equal to its slice of the sorted keys of
+   every rank, and each psort step's device time from CUDA events at the edges of its
+   span (``tracing.observe``), with the bytes the ring carried and the
+   counters psort.wire_bytes and psort.host_reads; alone, on four cards:
+   ``CUDA_VISIBLE_DEVICES=0,1,2,3 python3 -c "import chip_smoke as c;
+   c.phase_psort_group(c.card_line())"``;
 12. the MSB-partition front-end (ops/partition_engine.py) at
    partition_bits=8 against the direct network: sort_pairs u32+u32 and
    sort_keys u32 of 2**28 uniform keys (route "partition") and sort_keys
@@ -180,6 +189,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -2821,10 +2831,148 @@ def phase_partition(card: str) -> int:
     return launches
 
 
+#: psort's spans, in the order a call opens them (psort.merge inside the
+#: ring's rounds, or after the last one)
+PSORT_STEPS = ("psort.relay_in", "psort.pre_exchange", "psort.local_sort",
+               "psort.splitters", "psort.refine", "psort.cuts", "psort.ring",
+               "psort.merge", "psort.rebalance", "psort.relay_out")
+
+
+def psort_step_times(fn) -> dict:
+    """One call of ``fn`` inside ``tracing.record()``: the device time (ms)
+    between CUDA events at the begin and end of each psort span, summed by
+    name (the root's under ``"call"``), the bytes psort.wire_bytes counted
+    inside the ring's rounds (``"ring_bytes"``), and the call's counters."""
+    open_, ms = [], {}
+    ring = [0]
+
+    def wire() -> int:
+        return sum(v for (_, k), v in rec.counts.items()
+                   if k == "psort.wire_bytes")
+
+    def watch(event, name, attrs):
+        if not name.startswith("psort") or event == "instant":
+            return
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        if event == "begin":
+            open_.append((name, ev, wire()))
+            return
+        began, start, sent = open_.pop()
+        assert began == name, (began, name)
+        ms.setdefault(name, []).append((start, ev))
+        if name == "psort.ring":
+            ring[0] += wire() - sent
+
+    with tracing.record() as rec, tracing.observe(watch):
+        fn()
+    torch.cuda.synchronize()
+    out = {("call" if name.startswith("psort_") else name):
+           sum(a.elapsed_time(b) for a, b in pairs)
+           for name, pairs in ms.items()}
+    counts = {}
+    for (_, k), v in rec.counts.items():
+        counts[k] = counts.get(k, 0) + v
+    return {"ms": out, "ring_bytes": ring[0], "counts": counts}
+
+
+def _psort_rank(rank: int, world: int, port: int, n: int, reps: int,
+                queue) -> None:
+    """One rank of phase 11's group: psort_keys of its ``n`` zipf keys,
+    checked against its slice of the sorted keys of every rank, then
+    ``reps`` calls timed by step (:func:`psort_step_times`); puts
+    ``(rank, report)`` on ``queue``."""
+    report = {"rank": rank}
+    try:
+        torch.cuda.set_device(rank)
+        multihost.initialize(backend="nccl",
+                             init_method=f"tcp://127.0.0.1:{port}",
+                             world_size=world, rank=rank)
+        x = torch.from_numpy(zipf_keys(n, SEED + 40 + rank)).cuda()
+        got = thrs.psort_keys(x)
+        # the keys of every rank, sorted by their unsigned bits (the sign
+        # bit flipped for the signed sort)
+        bits = x.view(torch.int32)
+        every = [torch.empty_like(bits) for _ in range(world)]
+        dist.all_gather(every, bits)
+        flip = torch.cat(every) ^ (-(1 << 31))
+        del every
+        want = torch.sort(flip).values[rank * n:(rank + 1) * n] ^ (-(1 << 31))
+        del flip
+        report["mismatches"] = int((got.view(torch.int32) != want).sum())
+        del got, want
+        torch.cuda.synchronize()
+        calls = [psort_step_times(lambda: thrs.psort_keys(x))
+                 for _ in range(reps)]
+        report["ms"] = {k: statistics.median(c["ms"].get(k, 0.0)
+                                             for c in calls)
+                        for k in calls[0]["ms"]}
+        report["ring_bytes"] = calls[0]["ring_bytes"]
+        report["counts"] = calls[0]["counts"]
+        report["peak_bytes"] = torch.cuda.max_memory_allocated()
+        dist.destroy_process_group()
+    except Exception:  # the parent reports it and raises
+        report["error"] = traceback.format_exc()
+    queue.put((rank, report))
+
+
+def phase_psort_group(card: str, n: int = PSORT_N, reps: int = 5) -> None:
+    """psort_keys on a group of every card this process sees, up to 4: one
+    process a card (``_psort_rank``, which inherits this process's
+    CUDA_VISIBLE_DEVICES), each rank's output bit-equal to its slice of
+    the sorted keys of every rank, each step's device time (median of
+    ``reps`` calls) and the bytes on the wire."""
+    import multiprocessing
+    world = min(torch.cuda.device_count(), 4)
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [ctx.Process(target=_psort_rank,
+                         args=(r, world, port, n, reps, queue))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    reports = {}
+    try:
+        for _ in range(world):
+            rank, report = queue.get(timeout=900)
+            reports[rank] = report
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    plan = psort.capacity_plan(world * n, world)
+    log("11 psort", f"group of {world} card(s), NCCL: "
+        f"psort_keys of {n} zipf(1.3) u32 keys a rank; B={plan.B} "
+        f"cap={plan.cap} cap3={plan.cap3} refine={plan.refine}; card: "
+        f"{card}")
+    for rank in sorted(reports):
+        rep = reports[rank]
+        if "error" in rep or rep["mismatches"]:
+            raise AssertionError(f"psort group, rank {rank}: {rep}")
+        steps = ", ".join(f"{k.removeprefix('psort.')} {rep['ms'][k]:.3f}"
+                          for k in PSORT_STEPS if k in rep["ms"])
+        log("11 psort", f"group of {world}, rank {rank}: call "
+            f"{rep['ms']['call']:.3f} ms; by step (ms, median of {reps}, "
+            f"CUDA events at the spans' edges; merge: the run tree's "
+            f"merges, inside ring's rounds or after them): {steps}; "
+            f"the ring carried {rep['ring_bytes']} B, "
+            f"psort.wire_bytes {rep['counts'].get('psort.wire_bytes', 0)}, "
+            f"psort.host_reads {rep['counts'].get('psort.host_reads')}; "
+            f"peak memory {rep['peak_bytes'] / 2**30:.3f} GiB; bit-equal to "
+            f"its slice of the sorted keys of every rank")
+
+
 def phase_psort(card: str) -> int:
-    """Phase 11 on the running one-rank group (``_one_rank_group``)."""
+    """Phase 11 on the running one-rank group (``_one_rank_group``), then
+    on a group of every visible card (``phase_psort_group``)."""
     launches = phase_psort_main(card)
     phase_psort_local(card)
+    torch.cuda.empty_cache()
+    phase_psort_group(card)
     return launches
 
 

@@ -6,19 +6,23 @@ Run as: python tests/_torch_psort_worker.py <case_dir> <world_size> <rank>
 "pairs", "indices", or "dryrun" for ``parallel.dryrun.dryrun_multichip``
 with ``kwargs``), "kwargs", "keys" (a .npy file of the whole global
 array), "values" (null, a .npy file, or a dict of them), "lengths" (each
-rank's piece), "group" (null, or the ranks of a subgroup to sort over)}``.
+rank's piece), "group" (null, or the ranks of a subgroup to sort over),
+"record" (optional: true runs the call inside ``tracing.record()``)}``.
 The rank joins the group through ``multihost.initialize`` (gloo, a
 FileStore in ``<case_dir>``), runs every case on its piece and
 writes its outputs as ``<case_dir>/<name>.r<rank>.<part>.npy`` (the bits
 as signed integers of the same width) and ``<case_dir>/r<rank>.json``
 (per case: the overflow flag with ``check=True``, or the error raised; the
 words per element each exchange step carried, from ``psort.WIRE``; whether
-a donated call returned the caller's tensors; the dry run's lines).
+a donated call returned the caller's tensors; the dry run's lines; with
+"record", the spans other than ``gc`` as ``[name, call, id, parent, start,
+end, attrs]`` and the counters as ``[call, name, total]``).
 
 Imports only torch, numpy and the port, so it runs where another package
 named ``tests`` is installed.
 """
 
+import contextlib
 import json
 import os
 import sys
@@ -30,6 +34,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import tinyhipradixsort_torch as thrs  # noqa: E402
+from tinyhipradixsort_torch import tracing  # noqa: E402
 from tinyhipradixsort_torch.parallel import dryrun, multihost, psort  # noqa: E402
 
 _SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -61,19 +66,27 @@ def run_case(case, case_dir, rank):
         kw["group"] = torch.distributed.new_group(case["group"])
         if rank not in case["group"]:
             return report
+    if case["fn"] == "pairs":
+        values = case["values"]
+        vals = ({k: load(f) for k, f in values.items()}
+                if isinstance(values, dict) else load(values))
     psort.WIRE = lambda step, nw: report["wire"].setdefault(step, nw)
+    recording = (tracing.record() if case.get("record")
+                 else contextlib.nullcontext())
     try:
-        if case["fn"] == "keys":
-            out = thrs.psort_keys(keys, **kw)
-        elif case["fn"] == "indices":
-            out = thrs.psort_indices(keys, **kw)
-        else:
-            values = case["values"]
-            vals = ({k: load(f) for k, f in values.items()}
-                    if isinstance(values, dict) else load(values))
-            out = thrs.psort_pairs(keys, vals, **kw)
+        with recording as rec:
+            if case["fn"] == "keys":
+                out = thrs.psort_keys(keys, **kw)
+            elif case["fn"] == "indices":
+                out = thrs.psort_indices(keys, **kw)
+            else:
+                out = thrs.psort_pairs(keys, vals, **kw)
     finally:
         psort.WIRE = None
+    if rec is not None:
+        report["spans"] = [list(s) for s in rec.spans if s.name != "gc"]
+        report["counts"] = [[c, name, v] for (c, name), v in
+                            rec.counts.items()]
     if kw.get("donate") and case["fn"] != "indices":
         first = out[0] if isinstance(out, tuple) else out
         report["donated"] = first is keys and (

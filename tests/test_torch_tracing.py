@@ -309,3 +309,194 @@ def test_engines_called_directly_root_their_own_calls():
     roots = [s.name for s in _work(rec.spans) if s.parent is None]
     assert roots == ["counting.sort", "bitonic.sort_words"]
     assert set(tracing.split(rec.spans)) == {1, 2}
+
+
+
+# -- the distributed sort ----------------------------------------------------
+
+def _children(spans, root):
+    """Names of the root's children in the order they started."""
+    return [s.name for s in sorted(_work(spans), key=lambda s: s.start)
+            if s.parent == root.id]
+
+
+def _psort_steps(P, rounds, relayed):
+    """The children of a psort call's root, in order, on P ranks (the
+    runs the ring brings are merged inside its rounds)."""
+    steps = ["psort.relay_in"] if relayed else []
+    steps += ["psort.pre_exchange"] if P > 1 else []
+    steps += ["psort.local_sort", "psort.splitters"]
+    steps += ["psort.refine"] * rounds + ["psort.cuts"]
+    steps += ["psort.ring"] * P + ["psort.rebalance"]
+    return steps + (["psort.relay_out"] if relayed else [])
+
+
+def _overlap(a0, a1, b0, b1):
+    return max(0, min(a1, b1) - max(a0, b0))
+
+
+def _wire_bytes(P, me, lengths, wire):
+    """The bytes rank ``me`` puts in exchange buffers for other ranks:
+    the elements each step sends elsewhere times ``psort.WIRE``'s words
+    for it, four bytes a word, and the ring's length word a round."""
+    from tinyhipradixsort_torch.parallel import psort
+    n = sum(lengths)
+    plan = psort.capacity_plan(n, P)
+    B = plan.B
+    off = sum(lengths[:me])
+    mine = (me * B, min((me + 1) * B, n))
+    sent = {"relay-in": lengths[me] - _overlap(off, off + lengths[me], *mine),
+            "pre-exchange": B - B // P,
+            "ring": (P - 1) * plan.cap,
+            "rebalance": 2 * min(P - 1, 4) * plan.cap3,
+            "relay-out": max(mine[1] - mine[0], 0)
+            - _overlap(off, off + lengths[me], *mine)}
+    words = sum(wire.get(step, 0) * k for step, k in sent.items())
+    return 4 * (words + P - 1)
+
+
+def _check_psort_call(spans, counts, api, P, me, lengths, wire):
+    """One rank's record of one psort call: the root and its steps in
+    order, the layers summing to the root, ``psort.wire_bytes`` from
+    ``psort.WIRE``'s words and the plan, and ``psort.host_reads`` (the
+    pieces' lengths, the real count, the cuts, one a ring round, the
+    counts before the rebalance and the overflow flag)."""
+    from tinyhipradixsort_torch.parallel import psort
+    (root,) = [s for s in _work(spans) if s.parent is None]
+    assert root.name == api and {s.call for s in _work(spans)} == {root.call}
+    plan = psort.capacity_plan(sum(lengths), P)
+    rounds = plan.refine[0] if plan.refine else 0
+    relayed = any(x != plan.B for x in lengths)
+    assert _children(spans, root) == _psort_steps(P, rounds, relayed)
+    assert [s.attrs["round"] for s in spans if s.name == "psort.ring"] == \
+        list(range(P))
+    assert [s.attrs["round"] for s in spans if s.name == "psort.refine"] == \
+        list(range(rounds))
+    by_id = {s.id: s for s in spans}
+    merges = [s for s in spans if s.name == "psort.merge"]
+    assert len(merges) == P - 1  # P runs folded into one
+    assert all(by_id[s.parent].name == "psort.ring" for s in merges)
+    layers = tracing.split(spans)[root.call]
+    assert abs(sum(layers.values()) - (root.end - root.start)) \
+        <= 1000 * len(spans)
+    assert layers["api"] > 0 and layers["engines"] > 0
+    assert counts.get((root.call, "psort.wire_bytes"), 0) == \
+        _wire_bytes(P, me, lengths, wire)
+    assert counts[(root.call, "psort.host_reads")] == 5 + P - 1
+
+
+@pytest.fixture(scope="module")
+def one_rank_group(tmp_path_factory):
+    """A gloo group of this process alone (a FileStore in a fresh folder)."""
+    import torch.distributed as dist
+    store = tmp_path_factory.mktemp("psort_group") / "store"
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _psort_call(api, n):
+    # ties, which the global index breaks
+    x = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 100, size=n, dtype=np.uint32))
+    if api == "psort_pairs":
+        return lambda: tthrs.psort_pairs(x, torch.arange(n))
+    return lambda: getattr(tthrs, api)(x)
+
+
+@pytest.mark.parametrize("api", ["psort_keys", "psort_pairs",
+                                 "psort_indices"])
+@pytest.mark.parametrize("n", [4096, 3001], ids=["whole", "relayed"])
+def test_psort_records_its_steps_at_world_size_one(one_rank_group, api, n):
+    from tinyhipradixsort_torch.parallel import psort
+    call = _psort_call(api, n)
+    wire = {}
+    psort.WIRE = lambda step, nw: wire.setdefault(step, nw)
+    try:
+        with tracing.record() as rec:
+            call()
+    finally:
+        psort.WIRE = None
+    _check_psort_call(rec.spans, rec.counts, api, 1, 0, [n], wire)
+
+
+def test_psort_records_nothing_when_off(one_rank_group, monkeypatch):
+    asked = []
+    span = tracing.span
+
+    def spy(name, **attrs):
+        got = span(name, **attrs)
+        asked.append((name, got is tracing._OFF))
+        return got
+
+    monkeypatch.setattr(tracing, "span", spy)
+    for api in ("psort_keys", "psort_pairs", "psort_indices"):
+        _psort_call(api, 3001)()
+    assert tracing._REC is None
+    assert {name for name, _ in asked} >= {"psort_keys", "psort.ring",
+                                           "psort.relay_in"}
+    assert all(off for _, off in asked)
+
+
+_PSORT_WORKER = __file__.replace("test_torch_tracing.py",
+                                 "_torch_psort_worker.py")
+#: the gloo world of four's recorded cases: (name, fn, lengths)
+WORLD_CASES = [("zipf-keys", "keys", [4096] * 4),
+               ("zipf-pairs", "pairs", [4096] * 4),
+               ("uneven-keys", "keys", [0, 5, 1000, 37])]
+
+
+@pytest.fixture(scope="module")
+def recorded_world(tmp_path_factory):
+    """Each rank's report of a gloo world of four that ran WORLD_CASES
+    inside ``tracing.record()`` (``tests/_torch_psort_worker.py``)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    case_dir = tmp_path_factory.mktemp("psort_traced")
+    rng = np.random.default_rng(13)
+    table = []
+    for name, fn, lengths in WORLD_CASES:
+        n = sum(lengths)
+        keys = np.minimum(rng.zipf(1.3, n), 2**31).astype(np.uint32)
+        np.save(case_dir / f"{name}.keys.npy", keys)
+        entry = {"name": name, "fn": fn, "kwargs": {}, "lengths": lengths,
+                 "keys": f"{name}.keys.npy", "values": None, "group": None,
+                 "record": True}
+        if fn == "pairs":
+            np.save(case_dir / f"{name}.v.npy", np.arange(n, dtype=np.uint32))
+            entry["values"] = f"{name}.v.npy"
+        table.append(entry)
+    (case_dir / "cases.json").write_text(json.dumps(table))
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, _PSORT_WORKER, str(case_dir),
+                               "4", str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env)
+             for r in range(4)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"rank {r}: ok" in out, out
+    return [json.loads((case_dir / f"r{r}.json").read_text())
+            for r in range(4)]
+
+
+@pytest.mark.parametrize("name,fn,lengths", WORLD_CASES,
+                         ids=[c[0] for c in WORLD_CASES])
+def test_psort_records_its_steps_on_four_ranks(recorded_world, name, fn,
+                                               lengths):
+    for me, report in enumerate(recorded_world):
+        got = report[name]
+        assert got["error"] is None, got["error"]
+        spans = [Span(*s) for s in got["spans"]]
+        counts = {(c, k): v for c, k, v in got["counts"]}
+        _check_psort_call(spans, counts, f"psort_{fn}", 4, me, lengths,
+                          got["wire"])

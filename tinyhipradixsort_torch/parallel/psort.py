@@ -56,6 +56,25 @@ they are (every piece exactly ``B``, world size 1) the sort sweeps them in
 place. Buffers psort made itself (the relay's, the pre-exchange's) are
 always swept in place. :data:`WIRE` observes the words each exchange step
 carries per element.
+
+While :mod:`..tracing` records, each call of :func:`psort_keys`,
+:func:`psort_pairs` and :func:`psort_indices` is one span of that name,
+the root of a new call, and its steps are its children:
+``psort.relay_in`` and ``psort.relay_out`` (only where a piece differs
+from ``B``), ``psort.pre_exchange`` (only at P > 1), ``psort.local_sort``,
+``psort.splitters`` (the samples, the splitters, the real count and the
+splitters' local insertion points), ``psort.refine`` (one a round,
+attribute ``round``), ``psort.cuts`` (the cuts read to the host, the
+segments and the overflow test), ``psort.ring`` (one a round, attribute
+``round``; round 0 takes the rank's own run, and each run's merges are
+``psort.merge`` spans inside it; the merges of what is left after the
+last round are ``psort.merge`` spans of the call) and ``psort.rebalance``
+(with the reduced overflow flag). Two counters: ``psort.wire_bytes``, the
+bytes of the exchange buffers this rank hands to the group for other
+ranks (the relays, the pre-exchange, the ring and the rebalance; the few
+integers of the samples, candidates and counts are left out), and
+``psort.host_reads``, each read of the device's values on the host
+(``tolist``), which waits for the device's queue.
 """
 
 from __future__ import annotations
@@ -66,7 +85,7 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as dist
 
-from .. import keybits
+from .. import keybits, tracing
 from ..config import SortOrder
 from ..ops import bitonic_engine as be
 from ..ops import common
@@ -108,10 +127,17 @@ def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
     return torch.stack(out)
 
 
+def _read(t: torch.Tensor):
+    """``t.tolist()``, which waits for the device, counted as
+    ``psort.host_reads``."""
+    tracing.count("psort.host_reads")
+    return t.tolist()
+
+
 def _all_gather_ints(values: list, device, group) -> list:
     """Host lists of ``values`` (ints) from every rank, in rank order."""
     t = torch.tensor(values, dtype=torch.int64, device=device)
-    return _all_gather(t, group).tolist()
+    return _read(_all_gather(t, group))
 
 
 def _all_to_all(rows: torch.Tensor, send: list, recv: list,
@@ -120,6 +146,10 @@ def _all_to_all(rows: torch.Tensor, send: list, recv: list,
     ``recv``; the identity on a group of one."""
     if len(send) == 1:
         return rows
+    if tracing.on():
+        row_bytes = rows[:1].numel() * rows.element_size()
+        tracing.count("psort.wire_bytes",
+                      (sum(send) - send[dist.get_rank(group)]) * row_bytes)
     out = rows.new_empty((sum(recv),) + tuple(rows.shape[1:]))
     dist.all_to_all_single(out, rows.contiguous(), output_split_sizes=recv,
                            input_split_sizes=send, group=group)
@@ -129,6 +159,8 @@ def _all_to_all(rows: torch.Tensor, send: list, recv: list,
 def _sendrecv(buf: torch.Tensor, to: int, frm: int, group) -> torch.Tensor:
     """One ring round: send ``buf`` to rank ``to``, receive a buffer of the
     same shape from rank ``frm``."""
+    if tracing.on():
+        tracing.count("psort.wire_bytes", buf.numel() * buf.element_size())
     got = torch.empty_like(buf)
     ops = [dist.P2POp(dist.isend, buf, _peer(group, to), group),
            dist.P2POp(dist.irecv, got, _peer(group, frm), group)]
@@ -302,28 +334,29 @@ def _refine_cuts(cmp_words: list, nreal: int, cuts0: torch.Tensor, E0: int,
     r_hi_cur = torch.full((Q,), big, dtype=torch.int64, device=dev)
     j = torch.arange(1, k + 1, dtype=torch.int64, device=dev)
     t = targets[:, None]
-    for _ in range(rounds):
-        pos = l[:, None] + ((h - l)[:, None] * j[None, :]) // (k + 1)
-        pos_c = pos.clamp(max=max(nreal - 1, 0))  # (Q, k)
-        local = torch.stack([w[pos_c] for w in cmp_words])  # (ncmp, Q, k)
-        every = _all_gather(local, group)  # (P, ncmp, Q, k)
-        cand = [every[:, i].permute(1, 0, 2).reshape(Q, P_ * k)
-                for i in range(len(cmp_words))]
-        ins = _searchsorted_words(cmp_words, cand)  # (Q, P*k) local
-        ranks = ins.clone()
-        dist.all_reduce(ranks, group=group)  # exact global ranks
-        rank_lo = torch.where(ranks <= t, ranks, -1)
-        rank_hi = torch.where(ranks > t, ranks, big)
-        i_lo = torch.argmax(rank_lo, dim=1, keepdim=True)
-        i_hi = torch.argmin(rank_hi, dim=1, keepdim=True)
-        r_lo = rank_lo.gather(1, i_lo)[:, 0]
-        r_hi = rank_hi.gather(1, i_hi)[:, 0]
-        better_lo = r_lo > r_lo_cur
-        better_hi = r_hi < r_hi_cur
-        l = torch.where(better_lo, ins.gather(1, i_lo)[:, 0], l)
-        h = torch.where(better_hi, ins.gather(1, i_hi)[:, 0], h)
-        r_lo_cur = torch.where(better_lo, r_lo, r_lo_cur)
-        r_hi_cur = torch.where(better_hi, r_hi, r_hi_cur)
+    for rnd in range(rounds):
+        with tracing.span("psort.refine", round=rnd):
+            pos = l[:, None] + ((h - l)[:, None] * j[None, :]) // (k + 1)
+            pos_c = pos.clamp(max=max(nreal - 1, 0))  # (Q, k)
+            local = torch.stack([w[pos_c] for w in cmp_words])  # (ncmp, Q, k)
+            every = _all_gather(local, group)  # (P, ncmp, Q, k)
+            cand = [every[:, i].permute(1, 0, 2).reshape(Q, P_ * k)
+                    for i in range(len(cmp_words))]
+            ins = _searchsorted_words(cmp_words, cand)  # (Q, P*k) local
+            ranks = ins.clone()
+            dist.all_reduce(ranks, group=group)  # exact global ranks
+            rank_lo = torch.where(ranks <= t, ranks, -1)
+            rank_hi = torch.where(ranks > t, ranks, big)
+            i_lo = torch.argmax(rank_lo, dim=1, keepdim=True)
+            i_hi = torch.argmin(rank_hi, dim=1, keepdim=True)
+            r_lo = rank_lo.gather(1, i_lo)[:, 0]
+            r_hi = rank_hi.gather(1, i_hi)[:, 0]
+            better_lo = r_lo > r_lo_cur
+            better_hi = r_hi < r_hi_cur
+            l = torch.where(better_lo, ins.gather(1, i_lo)[:, 0], l)
+            h = torch.where(better_hi, ins.gather(1, i_hi)[:, 0], h)
+            r_lo_cur = torch.where(better_lo, r_lo, r_lo_cur)
+            r_hi_cur = torch.where(better_hi, r_hi, r_hi_cur)
     return torch.cummax(h.clamp(max=nreal), dim=0).values
 
 
@@ -356,11 +389,16 @@ class RunTree:
         self.ncmp, self.method, self.tuning = ncmp, method, tuning
         self.levels: dict = {}
 
+    def _merge(self, a_words: list, b_words: list) -> list:
+        with tracing.span("psort.merge",
+                          n=a_words[0].shape[0] + b_words[0].shape[0]):
+            return _merge_two_runs(a_words, b_words, self.ncmp, self.method,
+                                   self.tuning)
+
     def push(self, run: list) -> None:
         k = 0
         while k in self.levels:
-            run = _merge_two_runs(self.levels.pop(k), run, self.ncmp,
-                                  self.method, self.tuning)
+            run = self._merge(self.levels.pop(k), run)
             k += 1
         self.levels[k] = run
 
@@ -368,8 +406,7 @@ class RunTree:
         runs = [self.levels[k] for k in sorted(self.levels)]
         acc = runs[0]
         for run in runs[1:]:
-            acc = _merge_two_runs(run, acc, self.ncmp, self.method,
-                                  self.tuning)
+            acc = self._merge(run, acc)
         return acc
 
 
@@ -387,15 +424,17 @@ def _ring_exchange_merge(words: list, ncmp: int, cuts: list, lens: list,
     nw = len(words)
     fills = _fills(nw, ncmp)
     tree = RunTree(ncmp, method, tuning)
-    count = min(cuts[me + 1] - cuts[me], cap)
-    tree.push(list(_chunk(words, fills, cuts[me], count, cap)))
+    with tracing.span("psort.ring", round=0):
+        count = min(cuts[me + 1] - cuts[me], cap)
+        tree.push(list(_chunk(words, fills, cuts[me], count, cap)))
     for r in range(1, P_):
-        q = (me + r) % P_
-        sent = _chunk(words, fills, cuts[q], lens[q], cap)
-        buf = torch.cat([sent.view(-1), sent.new_tensor([lens[q]])])
-        got = _sendrecv(buf, q, (me - r) % P_, group)
-        count += int(got[-1])
-        tree.push(list(got[:-1].view(nw, cap)))
+        with tracing.span("psort.ring", round=r):
+            q = (me + r) % P_
+            sent = _chunk(words, fills, cuts[q], lens[q], cap)
+            buf = torch.cat([sent.view(-1), sent.new_tensor([lens[q]])])
+            got = _sendrecv(buf, q, (me - r) % P_, group)
+            count += _read(got[-1])
+            tree.push(list(got[:-1].view(nw, cap)))
     return tree.result(), count
 
 
@@ -482,45 +521,49 @@ def _psort_shard(cmp_words: list, carry_words: list, *, cap: int, cap3: int,
     # goes to rank j, so rank j holds exactly the global positions ≡ j
     # (mod P) and any position-contiguous mass splits evenly
     if P_ > 1:
-        _wire("pre-exchange", nw)
-        sub = B // P_
-        send = torch.stack(words).view(nw, sub, P_).permute(2, 0, 1)
-        got = _all_to_all(send.reshape(P_ * nw, sub), [nw] * P_, [nw] * P_,
-                          group)
-        del send
-        words = list(got.view(P_, nw, sub).permute(1, 0, 2).reshape(nw, B))
-        del got
+        with tracing.span("psort.pre_exchange", n=B, words=nw):
+            _wire("pre-exchange", nw)
+            sub = B // P_
+            send = torch.stack(words).view(nw, sub, P_).permute(2, 0, 1)
+            got = _all_to_all(send.reshape(P_ * nw, sub), [nw] * P_,
+                              [nw] * P_, group)
+            del send
+            words = list(got.view(P_, nw, sub).permute(1, 0, 2)
+                         .reshape(nw, B))
+            del got
         owned = True
 
     # 1. local stable sort (with the synthesized index on the keys-only
     # path)
-    ncmp_s = ncmp
-    if synth_n is not None:
-        words[ncmp:ncmp] = _synth_index_words(B, P_, me, synth_n, n_idx, dev)
-        ncmp_s = ncmp + n_idx
-    cmp_words, carry_words = _local_sort_words(
-        words[:ncmp_s], words[ncmp_s:], method, tuning, in_place=owned)
-    del words
+    ncmp_s = ncmp if synth_n is None else ncmp + n_idx
+    with tracing.span("psort.local_sort", n=B,
+                      words=nw + ncmp_s - ncmp):
+        if synth_n is not None:
+            words[ncmp:ncmp] = _synth_index_words(B, P_, me, synth_n, n_idx,
+                                                  dev)
+        cmp_words, carry_words = _local_sort_words(
+            words[:ncmp_s], words[ncmp_s:], method, tuning, in_place=owned)
+        del words
 
     # 2. s regular samples per rank, gathered; the replicated lexsort of
     # the P*s samples picks the P-1 splitters
-    s = sample_s
-    pos = torch.tensor([(i * B) // s for i in range(s)], device=dev)
-    every = _all_gather(torch.stack([w[pos] for w in cmp_words]), group)
-    samples = [every[:, i].reshape(-1) for i in range(ncmp_s)]  # (P*s,) each
-    order = _lexsort_perm(samples)
-    sel = order[torch.tensor([q * (P_ * s) // P_ for q in range(1, P_)],
-                             dtype=torch.int64, device=dev)]
-    splitters = [w[sel] for w in samples]
-
-    # 3. cuts clipped to the real count: entry pads (all-ones index words,
-    # the local tail) are never exchanged
-    pad = cmp_words[ncmp_s - n_idx] == SENTINEL
-    for w in cmp_words[ncmp_s - n_idx + 1:]:
-        pad &= w == SENTINEL
-    nreal = B - int(pad.sum())
-    del pad
-    cut = _searchsorted_words(cmp_words, splitters).clamp(max=nreal)
+    with tracing.span("psort.splitters", n=sample_s):
+        s = sample_s
+        pos = torch.tensor([(i * B) // s for i in range(s)], device=dev)
+        every = _all_gather(torch.stack([w[pos] for w in cmp_words]), group)
+        samples = [every[:, i].reshape(-1) for i in range(ncmp_s)]  # (P*s,)
+        order = _lexsort_perm(samples)
+        sel = order[torch.tensor([q * (P_ * s) // P_ for q in range(1, P_)],
+                                 dtype=torch.int64, device=dev)]
+        splitters = [w[sel] for w in samples]
+        # entry pads (all-ones index words, the local tail) are never
+        # exchanged: the cuts are clipped to the real count
+        pad = cmp_words[ncmp_s - n_idx] == SENTINEL
+        for w in cmp_words[ncmp_s - n_idx + 1:]:
+            pad &= w == SENTINEL
+        nreal = B - _read(pad.sum())
+        del pad
+        cut = _searchsorted_words(cmp_words, splitters).clamp(max=nreal)
     if refine is not None and refine[0] > 0:
         # targets are the padded quantiles q*B (rank q outputs global ranks
         # [q*B, (q+1)*B) with the entry pads at the global tail)
@@ -529,9 +572,12 @@ def _psort_shard(cmp_words: list, carry_words: list, *, cap: int, cap3: int,
                                dtype=torch.int64, device=dev)
         cut = _refine_cuts(cmp_words, nreal, cut, E0, rounds, k_ref, targets,
                            group).clamp(max=nreal)
-    cuts = [0] + cut.tolist() + [nreal]
-    seg = [b - a for a, b in zip(cuts, cuts[1:])]
-    overflow = any(x > cap for x in seg)
+
+    # 3. the cuts on the host
+    with tracing.span("psort.cuts"):
+        cuts = [0] + _read(cut) + [nreal]
+        seg = [b - a for a, b in zip(cuts, cuts[1:])]
+        overflow = any(x > cap for x in seg)
     # the synthesized index goes no further: the counts below come from
     # lengths and cuts, and ties among equal key words are invisible in
     # keys rebuilt from their bits
@@ -548,34 +594,37 @@ def _psort_shard(cmp_words: list, carry_words: list, *, cap: int, cap3: int,
     # 6. boundary rebalance to exactly B per rank: the piece for myself
     # stays; boundary pieces (the cumulative splitter drift) go to the R
     # ring neighbours on each side, one (cap3,) buffer per word each
-    counts = [c[0] for c in _all_gather_ints([count], dev, group)]
-    start_me = sum(counts[:me])
-    cuts3 = [min(max(q * B - start_me, 0), count) for q in range(P_ + 1)]
-    seg3 = [b - a for a, b in zip(cuts3, cuts3[1:])]
-    R = min(P_ - 1, 4)
-    overflow = overflow or any(
-        q != me and ((abs(q - me) > R and seg3[q] > 0) or seg3[q] > cap3)
-        for q in range(P_))
-    send3 = [0 if q == me else min(seg3[q], cap3) for q in range(P_)]
-    fills = _fills(nw, ncmp)
-    if R:
-        _wire("rebalance", nw)
-    pieces = []
-    for d in [sgn * r for r in range(1, R + 1) for sgn in (1, -1)]:
-        q = me + d  # my piece for rank q rides offset d
-        qc = min(max(q, 0), P_ - 1)
-        ln = send3[qc] if 0 <= q < P_ else 0
-        pieces.append(_sendrecv(_chunk(merged, fills, cuts3[qc], ln, cap3),
-                                (me + d) % P_, (me - d) % P_, group))
-    recv3 = list(torch.cat(pieces, dim=1)) if pieces else []
-    kept = list(_chunk(merged, fills, cuts3[me], cuts3[me + 1] - cuts3[me],
-                       B))
-    del merged, pieces
-    out = rebalance_merge(kept, recv3, ncmp, 2 * R, cap3, method, tuning)
-    out = [w[:B] for w in out]
-    flag = torch.tensor([int(overflow)], dtype=torch.int64, device=dev)
-    dist.all_reduce(flag, group=group)
-    return out[:ncmp], out[ncmp:], bool(flag.item() > 0)
+    with tracing.span("psort.rebalance", n=B, words=nw):
+        counts = [c[0] for c in _all_gather_ints([count], dev, group)]
+        start_me = sum(counts[:me])
+        cuts3 = [min(max(q * B - start_me, 0), count) for q in range(P_ + 1)]
+        seg3 = [b - a for a, b in zip(cuts3, cuts3[1:])]
+        R = min(P_ - 1, 4)
+        overflow = overflow or any(
+            q != me and ((abs(q - me) > R and seg3[q] > 0) or seg3[q] > cap3)
+            for q in range(P_))
+        send3 = [0 if q == me else min(seg3[q], cap3) for q in range(P_)]
+        fills = _fills(nw, ncmp)
+        if R:
+            _wire("rebalance", nw)
+        pieces = []
+        for d in [sgn * r for r in range(1, R + 1) for sgn in (1, -1)]:
+            q = me + d  # my piece for rank q rides offset d
+            qc = min(max(q, 0), P_ - 1)
+            ln = send3[qc] if 0 <= q < P_ else 0
+            pieces.append(_sendrecv(
+                _chunk(merged, fills, cuts3[qc], ln, cap3), (me + d) % P_,
+                (me - d) % P_, group))
+        recv3 = list(torch.cat(pieces, dim=1)) if pieces else []
+        kept = list(_chunk(merged, fills, cuts3[me],
+                           cuts3[me + 1] - cuts3[me], B))
+        del merged, pieces
+        out = rebalance_merge(kept, recv3, ncmp, 2 * R, cap3, method, tuning)
+        out = [w[:B] for w in out]
+        flag = torch.tensor([int(overflow)], dtype=torch.int64, device=dev)
+        dist.all_reduce(flag, group=group)
+        overflow = _read(flag)[0] > 0
+    return out[:ncmp], out[ncmp:], overflow
 
 
 # ---------------------------------------------------------------------------
@@ -695,15 +744,16 @@ def _relay_in(words: list, lengths: list, B: int, n: int, ncmp: int,
     ``all_to_all_single`` of the stacked words."""
     if all(x == B for x in lengths):
         return list(words)
-    _wire("relay-in", len(words))
-    off, ln = _spans(lengths)[me]
-    send = [_overlap(off, off + ln, q * B, min((q + 1) * B, n))
-            for q in range(len(lengths))]
-    recv = [_overlap(o, o + x, me * B, min((me + 1) * B, n))
-            for o, x in _spans(lengths)]
-    got = _all_to_all(torch.stack(words, dim=1), send, recv, group)
-    return list(_chunk(list(got.t()), _fills(len(words), ncmp), 0,
-                       got.shape[0], B))
+    with tracing.span("psort.relay_in", n=B, words=len(words)):
+        _wire("relay-in", len(words))
+        off, ln = _spans(lengths)[me]
+        send = [_overlap(off, off + ln, q * B, min((q + 1) * B, n))
+                for q in range(len(lengths))]
+        recv = [_overlap(o, o + x, me * B, min((me + 1) * B, n))
+                for o, x in _spans(lengths)]
+        got = _all_to_all(torch.stack(words, dim=1), send, recv, group)
+        return list(_chunk(list(got.t()), _fills(len(words), ncmp), 0,
+                           got.shape[0], B))
 
 
 def _relay_out(words: list, lengths: list, B: int, n: int, me: int,
@@ -712,16 +762,17 @@ def _relay_out(words: list, lengths: list, B: int, n: int, me: int,
     sorted ranks [off_r, off_r + len_r)."""
     if all(x == B for x in lengths):
         return list(words)
-    _wire("relay-out", len(words))
-    mine = (me * B, min((me + 1) * B, n))
-    send = [_overlap(o, o + x, *mine) for o, x in _spans(lengths)]
-    off, ln = _spans(lengths)[me]
-    recv = [_overlap(off, off + ln, q * B, min((q + 1) * B, n))
-            for q in range(len(lengths))]
-    real = max(mine[1] - mine[0], 0)
-    rows = torch.stack([w[:real] for w in words], dim=1)
-    got = _all_to_all(rows, send, recv, group)
-    return [c.contiguous() for c in got.t()]
+    with tracing.span("psort.relay_out", n=B, words=len(words)):
+        _wire("relay-out", len(words))
+        mine = (me * B, min((me + 1) * B, n))
+        send = [_overlap(o, o + x, *mine) for o, x in _spans(lengths)]
+        off, ln = _spans(lengths)[me]
+        recv = [_overlap(off, off + ln, q * B, min((q + 1) * B, n))
+                for q in range(len(lengths))]
+        real = max(mine[1] - mine[0], 0)
+        rows = torch.stack([w[:real] for w in words], dim=1)
+        got = _all_to_all(rows, send, recv, group)
+        return [c.contiguous() for c in got.t()]
 
 
 def _psort_entry(keys, leaves, *, group, descending, method, oversample,
@@ -847,12 +898,15 @@ def psort_keys(keys, *, group=None, order="ascending", method="auto",
     ``_force_wide=True`` takes the two-word index of a global n >= 2**32
     at any n.
     """
-    keys, kw = _prep(keys, order, start_bit, end_bit, donate)
-    out = _psort_entry(keys, [], group=group, method=method,
-                       oversample=oversample, slack=slack, want=("keys",),
-                       check=check, zeros_exact=zeros_exact, refine=refine,
-                       _unsafe_cap=_unsafe_cap, _force_wide=_force_wide, **kw)
-    out = _consume_overflow(out, check)
+    with tracing.span("psort_keys"):
+        keys, kw = _prep(keys, order, start_bit, end_bit, donate)
+        out = _psort_entry(keys, [], group=group, method=method,
+                           oversample=oversample, slack=slack,
+                           want=("keys",), check=check,
+                           zeros_exact=zeros_exact, refine=refine,
+                           _unsafe_cap=_unsafe_cap, _force_wide=_force_wide,
+                           **kw)
+        out = _consume_overflow(out, check)
     return out if check else out[0]
 
 
@@ -866,15 +920,16 @@ def psort_pairs(keys, values, *, group=None, order="ascending",
     writes the result into ``keys`` and the value leaves (contiguous
     tensors that share no memory) and returns them in ``values``'
     structure. Other arguments as in :func:`psort_keys`."""
-    keys, kw = _prep(keys, order, start_bit, end_bit, donate)
-    leaves, rebuild = _flatten(values, donate)
-    out = _psort_entry(keys, leaves, group=group, method=method,
-                       oversample=oversample, slack=slack,
-                       want=("keys", "values"), check=check,
-                       zeros_exact=zeros_exact, refine=refine,
-                       _force_wide=_force_wide, **kw)
-    out = _consume_overflow(out, check)
-    k, v = out[0], rebuild(iter(out[1]))
+    with tracing.span("psort_pairs"):
+        keys, kw = _prep(keys, order, start_bit, end_bit, donate)
+        leaves, rebuild = _flatten(values, donate)
+        out = _psort_entry(keys, leaves, group=group, method=method,
+                           oversample=oversample, slack=slack,
+                           want=("keys", "values"), check=check,
+                           zeros_exact=zeros_exact, refine=refine,
+                           _force_wide=_force_wide, **kw)
+        out = _consume_overflow(out, check)
+        k, v = out[0], rebuild(iter(out[1]))
     return (k, v, out[2]) if check else (k, v)
 
 
@@ -886,10 +941,11 @@ def psort_indices(keys, *, group=None, order="ascending", method="auto",
     from there on and with ``_force_wide=True``). ``donate=True`` lets the
     sort use the keys as scratch: their content afterwards is unspecified.
     Other arguments as in :func:`psort_keys`."""
-    keys, kw = _prep(keys, order, start_bit, end_bit, donate)
-    out = _psort_entry(keys, [], group=group, method=method,
-                       oversample=oversample, slack=slack,
-                       want=("indices",), check=check, refine=refine,
-                       _force_wide=_force_wide, **kw)
-    out = _consume_overflow(out, check)
+    with tracing.span("psort_indices"):
+        keys, kw = _prep(keys, order, start_bit, end_bit, donate)
+        out = _psort_entry(keys, [], group=group, method=method,
+                           oversample=oversample, slack=slack,
+                           want=("indices",), check=check, refine=refine,
+                           _force_wide=_force_wide, **kw)
+        out = _consume_overflow(out, check)
     return out if check else out[0]

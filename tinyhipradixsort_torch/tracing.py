@@ -28,7 +28,8 @@ without a second alignment.
 
 Off (no record), :func:`span` returns one shared no-op context manager
 after a single ``is None`` test: it reads no clock and records nothing;
-:func:`event` and :func:`count` return after the same test. Nothing turns
+:func:`event`, :func:`count` and :func:`on` return after the same test
+(a counter whose argument costs work is guarded by :func:`on`). Nothing turns
 recording on but :func:`record` and :func:`observe`: no environment
 variable, no option. The recorder is one per process and follows one
 thread; spans opened in other threads are not recorded.
@@ -206,6 +207,13 @@ def count(name: str, k: int = 1) -> None:
         return
     key = (rec._call(), name)
     rec.counts[key] = rec.counts.get(key, 0) + k
+
+
+def on() -> bool:
+    """Whether this thread records: guards a counter whose ``k`` costs
+    work to compute, so that off it costs the same one test."""
+    rec = _REC
+    return rec is not None and threading.get_ident() == rec._thread
 
 
 def _memory_stats():
