@@ -26,7 +26,8 @@ Phases, one output line each (time, kernel launches, result):
    the merges' sweeps of stage log2 m alone (2**31 words for the u32Large
    bench's merge), through the CUDA kernel and through
    ``run_sweep_reference``, required bit-equal;
-4. main path: the public entry points at real sizes (sort_keys u32 at 2**28,
+4. main path: the public entry points with method="bitonic" (``NET``; the
+   network's routes) at real sizes (sort_keys u32 at 2**28,
    the bench workload; pairs at 2**24 and 2**16; f32 with NaN and -0.0;
    u64 pairs; u32 keys and u32+u32 pairs at 160,000,000 through the
    segmented route; a descending, a bit-window and a sort_indices case;
@@ -156,11 +157,16 @@ Phases, one output line each (time, kernel launches, result):
 13. the harness layer in process, on phase 11's group: the bench
    (``tinyhipradixsort_torch.bench``) at 2**28 and at the reference's
    u32Large n = 2**31 + 100 (unittest.cpp:688-717), each with --verify full
-   (bit-exact against the host oracle) and its JSON line, its routes at
-   MARK (padded at 2**28, segmented at u32Large), peak device memory, the
-   oracle's time and the process's peak host memory, the host's memory
-   printed before the u32Large step; the matrix (``benchmarks.full``) at 1M, 16M and 256M
-   beside torch.sort; ``tools.verify_baseline`` (2**28 u64+u64 pairs);
+   (bit-exact against the host oracle) and its JSON line, its engine (the
+   one ``sort._resolve_method`` names: counting, with no network route
+   read at MARK), peak device memory, the oracle's time and the process's
+   peak host memory, the host's memory printed before the u32Large step;
+   the matrix (``benchmarks.full``) through bitonic, counting and auto at
+   1M-256M by the host's clock beside torch.sort, with the size from which
+   counting beats the network in every 1-D workload (``crossover``, the
+   table that places ``sort.AUTO_COUNTING_MIN_N``; alone: ``python3 -c
+   "import chip_smoke as c; c.crossover(c.card_line())"``);
+   ``tools.verify_baseline`` (2**28 u64+u64 pairs);
    ``tools.nonpow2_sweep --big`` (each case exact and on its route);
    ``tools.drive --iters 8``; the three examples (soak with --iters 2);
    ``entry``; ``benchmarks.scaling`` at world size 1;
@@ -205,6 +211,7 @@ import torch.distributed as dist  # noqa: E402
 
 import tinyhipradixsort_torch as thrs  # noqa: E402
 from tinyhipradixsort_torch import keybits  # noqa: E402
+from tinyhipradixsort_torch import sort as sort_mod  # noqa: E402
 from tinyhipradixsort_torch import tracing  # noqa: E402
 from tinyhipradixsort_torch.ops import bitonic_engine as be  # noqa: E402
 from tinyhipradixsort_torch.ops import counting_engine  # noqa: E402
@@ -224,6 +231,9 @@ from tinyhipradixsort_torch.utils import native_oracle  # noqa: E402
 from tinyhipradixsort_torch.utils import trace  # noqa: E402
 
 SEED = 20260
+#: the phases that time or check the bitonic network name it: ``"auto"``
+#: runs the counting engine on large 1-D keys
+NET = "bitonic"
 #: kernel (its source is csrc/<name>.cu) -> the TPU kernel it replaces
 KERNELS = {
     "bitonic_sweep": "tinyhipradixsort_tpu/ops/bitonic_engine.py:267",
@@ -467,7 +477,7 @@ def main_path_cases():
             xd = torch.from_numpy(x).cuda()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = thrs.sort_keys(xd, **kw)
+            out = thrs.sort_keys(xd, method=NET, **kw)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             got = out.cpu().numpy()
@@ -490,7 +500,7 @@ def main_path_cases():
             xd, vd = torch.from_numpy(x).cuda(), torch.from_numpy(v).cuda()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            k, vals = thrs.sort_pairs(xd, vd, order=order, **kw)
+            k, vals = thrs.sort_pairs(xd, vd, order=order, method=NET, **kw)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             gk, gv = k.cpu().numpy(), vals.cpu().numpy()
@@ -510,7 +520,7 @@ def main_path_cases():
             xd = torch.from_numpy(x).cuda()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            perm = thrs.sort_indices(xd)
+            perm = thrs.sort_indices(xd, method=NET)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             got = perm.cpu().numpy()
@@ -526,8 +536,8 @@ def main_path_cases():
             xd, vd = torch.from_numpy(x).cuda(), torch.from_numpy(v).cuda()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = (thrs.sort_pairs(xd, vd) if with_values
-                   else (thrs.sort_keys(xd),))
+            out = (thrs.sort_pairs(xd, vd, method=NET) if with_values
+                   else (thrs.sort_keys(xd, method=NET),))
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             got = [o.cpu().numpy() for o in out]
@@ -551,7 +561,7 @@ def main_path_cases():
                                                 n)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            k, vals = thrs.sort_pairs(xd, vd, segment_ids=seg)
+            k, vals = thrs.sort_pairs(xd, vd, segment_ids=seg, method=NET)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             gk, gv, sid = k.cpu().numpy(), vals.cpu().numpy(), seg.cpu().numpy()
@@ -572,7 +582,7 @@ def main_path_cases():
             xd = torch.from_numpy(u.view(np.int16)).cuda().view(tdtype)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = thrs.sort_keys(xd)
+            out = thrs.sort_keys(xd, method=NET)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             got = out.view(torch.int16).cpu().numpy().view(np.uint16)
@@ -587,7 +597,7 @@ def main_path_cases():
             xd, vd = torch.from_numpy(x).cuda(), torch.from_numpy(v).cuda()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            k, vals = thrs.sort_pairs(xd, vd, stable=False)
+            k, vals = thrs.sort_pairs(xd, vd, stable=False, method=NET)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             gk, gv = k.cpu().numpy(), vals.cpu().numpy()
@@ -704,7 +714,7 @@ def fresh_runs(src: list, fn, reps: int) -> tuple[float, list]:
 
 def phase_timing(x: torch.Tensor, card: str) -> tuple[float, float, float, int]:
     n = x.shape[0]
-    sort_ms = cuda_ms(lambda: thrs.sort_keys(x), 5)
+    sort_ms = cuda_ms(lambda: thrs.sort_keys(x, method=NET), 5)
     # int32 with the sign bit flipped orders as the unsigned keys do
     signed = x.view(torch.int32) ^ -2**31
     yard_ms = cuda_ms(lambda: torch.sort(signed, stable=True), 5)
@@ -818,11 +828,12 @@ def phase_pairs(card: str) -> None:
         keys, vals = (torch.randint(info.min, info.max, (n,), generator=gen,
                                     device="cuda", dtype=dtype).view(unsigned)
                       for _ in range(2))
-        sort_ms = cuda_ms(lambda: thrs.sort_pairs(keys, vals), 5)
+        sort_ms = cuda_ms(lambda: thrs.sort_pairs(keys, vals, method=NET), 5)
         log("5 timing", f"sort_pairs {label} n=2**24: {sort_ms:.3f} ms "
             f"({n / sort_ms / 1e6:.4f} Gpairs/s); median of 5, CUDA events; "
             f"card: {card}")
-        sweeps, med = sweep_times(lambda: thrs.sort_pairs(keys, vals))
+        sweeps, med = sweep_times(
+            lambda: thrs.sort_pairs(keys, vals, method=NET))
         groups = {"first local": [0],
                   "later local": [i for i, s in enumerate(sweeps)
                                   if s.g == 0][1:],
@@ -912,7 +923,7 @@ def phase_rows_timing(card: str) -> None:
         v = _random_u32(B * n, gen, (B, n))
         signed = _flipped(x)
         if with_values:
-            ms = cuda_ms(lambda: thrs.sort_pairs(x, v), 5)
+            ms = cuda_ms(lambda: thrs.sort_pairs(x, v, method=NET), 5)
             count_ms = cuda_ms(
                 lambda: thrs.sort_pairs(x, v, method="counting"), 5)
 
@@ -920,7 +931,7 @@ def phase_rows_timing(card: str) -> None:
                 _, idx = torch.sort(signed, dim=-1, stable=True)
                 return torch.take_along_dim(v, idx, dim=-1)
         else:
-            ms = cuda_ms(lambda: thrs.sort_keys(x), 5)
+            ms = cuda_ms(lambda: thrs.sort_keys(x, method=NET), 5)
             count_ms = cuda_ms(lambda: thrs.sort_keys(x, method="counting"), 5)
 
             def library():
@@ -991,8 +1002,9 @@ def phase_unstable_timing(card: str) -> None:
     gen.manual_seed(SEED + 24)
     n = 1 << 24
     keys, vals = _random_u32(n, gen), _random_u32(n, gen)
-    fast = cuda_ms(lambda: thrs.sort_pairs(keys, vals, stable=False), 5)
-    stable = cuda_ms(lambda: thrs.sort_pairs(keys, vals), 5)
+    fast = cuda_ms(lambda: thrs.sort_pairs(keys, vals, stable=False,
+                                           method=NET), 5)
+    stable = cuda_ms(lambda: thrs.sort_pairs(keys, vals, method=NET), 5)
     log("5 timing", f"sort_pairs u32+u32 n=2**24: stable=False {fast:.3f} ms,"
         f" stable=True {stable:.3f} ms ({stable / fast:.3f}x); median of 5, "
         f"CUDA events; card: {card}")
@@ -2491,20 +2503,20 @@ def phase_psort_main(card: str) -> int:
     # it is keys-only (its ring must carry the key word alone)
     calls = {
         "psort_keys": (lambda: thrs.psort_keys(xd),
-                       lambda: thrs.sort_keys(xd), True),
+                       lambda: thrs.sort_keys(xd, method=NET), True),
         "psort_keys descending": (
             lambda: thrs.psort_keys(xd, order="descending"),
-            lambda: thrs.sort_keys(xd, order="descending"), True),
+            lambda: thrs.sort_keys(xd, order="descending", method=NET), True),
         "psort_keys _force_wide": (
             lambda: thrs.psort_keys(xd, _force_wide=True),
-            lambda: thrs.sort_keys(xd), True),
+            lambda: thrs.sort_keys(xd, method=NET), True),
         "psort_pairs": (lambda: thrs.psort_pairs(xd, vd),
-                        lambda: thrs.sort_pairs(xd, vd), False),
+                        lambda: thrs.sort_pairs(xd, vd, method=NET), False),
         "psort_indices": (lambda: thrs.psort_indices(xd),
-                          lambda: thrs.sort_indices(xd), False),
+                          lambda: thrs.sort_indices(xd, method=NET), False),
         "psort_indices _force_wide": (
             lambda: thrs.psort_indices(xd, _force_wide=True),
-            lambda: thrs.sort_indices(xd), False),
+            lambda: thrs.sort_indices(xd, method=NET), False),
     }
     got, routes, wires = {}, [], {}
     be.KERNEL_LAUNCHES = 0
@@ -2782,12 +2794,13 @@ def phase_partition(card: str) -> int:
     oracles = {"uniform": pool.submit(native_oracle.oracle_sort, _host(keys)),
                "zipf": pool.submit(native_oracle.oracle_sort, _host(zipf))}
     cases = {
-        "sort_pairs u32+u32 uniform": (lambda: thrs.sort_pairs(keys, vals),
-                                       "uniform", "partition"),
-        "sort_keys u32 uniform": (lambda: thrs.sort_keys(keys), "uniform",
-                                  "partition"),
-        "sort_keys u32 zipf(1.3)": (lambda: thrs.sort_keys(zipf), "zipf",
-                                    "partition-fallback"),
+        "sort_pairs u32+u32 uniform": (
+            lambda: thrs.sort_pairs(keys, vals, method=NET), "uniform",
+            "partition"),
+        "sort_keys u32 uniform": (lambda: thrs.sort_keys(keys, method=NET),
+                                  "uniform", "partition"),
+        "sort_keys u32 zipf(1.3)": (lambda: thrs.sort_keys(zipf, method=NET),
+                                    "zipf", "partition-fallback"),
     }
     got = {}
     be.KERNEL_LAUNCHES = 0
@@ -3004,10 +3017,82 @@ def _step(what: str, fn):
     return result, lines
 
 
+#: the sizes of the crossover table that places sort.AUTO_COUNTING_MIN_N
+CROSSOVER_SIZES = ("1M", "2M", "4M", "8M", "16M", "64M", "256M")
+#: its rows beside the matrix's: 2-byte keys (counting carries a -0.0 flag
+#: and rebuilds the keys) and a 16-byte payload, the widest a pass carries
+#: (name, key kind, value kind)
+CROSSOVER_EXTRA = (("sort_keys f16", "f16", None),
+                   ("sort_pairs u32+u128", "u32", "u128"))
+
+
+def crossover(card: str, methods=("bitonic", "counting", "auto"),
+              reps: int = 20, sizes=CROSSOVER_SIZES) -> dict:
+    """The matrix (``benchmarks.full``) and :data:`CROSSOVER_EXTRA` at
+    ``sizes`` through each of ``methods``, every call by the host's clock
+    from a synchronized card until its work is done, ``reps`` calls a row
+    (ten times as many below 1 ms): one line a workload with each method's
+    engine, median and p95 beside torch.sort's; then, for each 1-D
+    workload, the smallest size from which counting beat the network's
+    median at every larger size, and the smallest from which it did so in
+    every workload, which places ``sort.AUTO_COUNTING_MIN_N`` (PERF.md §6).
+    Alone (~5 min): ``python3 -c "import chip_smoke as c;
+    c.crossover(c.card_line())"``. Returns {workload: {method: row}}."""
+    from tinyhipradixsort_torch.benchmarks import full
+
+    got = {}
+    for method in methods:
+        t0 = time.perf_counter()
+        table = full.run(sizes, reps, method, "cuda", out=lambda line: None)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(full.SEED)
+        table["results"] += [
+            full.run_row(f"{name} {label}", kind, full.SIZES[label], vkind,
+                         reps=reps, method=method, gen=gen,
+                         dev=torch.device("cuda"))
+            for label in sizes for name, kind, vkind in CROSSOVER_EXTRA]
+        for row in table["results"]:
+            got.setdefault(row["workload"], {})[method] = row
+        log("13 crossover", f"--method {method}: "
+            f"{time.perf_counter() - t0:.3f} s")
+    for name, by in got.items():
+        ref = next(iter(by.values()))
+        cols = "; ".join(
+            f"{m} ({r['engine']}) median {r['ours_median_s'] * 1e3:.4f} ms, "
+            f"p95 {r['ours_p95_s'] * 1e3:.4f}" for m, r in by.items())
+        log("13 crossover", f"{name}: {cols}; torch.sort median "
+            f"{ref['torch_median_s'] * 1e3:.4f} ms, p95 "
+            f"{ref['torch_p95_s'] * 1e3:.4f}; {ref['reps']} calls a column, "
+            f"host clock; card: {card}")
+    wins = {}  # 1-D workload -> [(n, counting's median below the network's)]
+    for name, by in got.items():
+        if "batched" in name or not {"bitonic", "counting"} <= set(by):
+            continue
+        wins.setdefault(name.rsplit(" ", 1)[0], []).append(
+            (by["bitonic"]["n"], by["counting"]["ours_median_s"]
+             < by["bitonic"]["ours_median_s"]))
+    froms = {}
+    for kind, rows in wins.items():
+        froms[kind] = None
+        for n, win in sorted(rows, reverse=True):
+            if not win:
+                break
+            froms[kind] = n
+        log("13 crossover", f"{kind}: counting's median beats the network's "
+            f"at every measured size from n = {froms[kind]}")
+    if froms:
+        every = (None if None in froms.values() else max(froms.values()))
+        log("13 crossover", f"in every 1-D workload from n = {every}; "
+            f"sort.AUTO_COUNTING_MIN_N = {sort_mod.AUTO_COUNTING_MIN_N}; "
+            f"card: {card}")
+    return got
+
+
 def phase_harness(card: str) -> int:
     """The harness layer in process, on the running one-rank group: the
     bench at 2**28 and at the reference's u32Large n = 2**31 + 100 (both
-    --verify full), the matrix at 1M, 16M and 256M, verify_baseline,
+    --verify full; "auto" runs counting at both), the matrix through bitonic, counting and auto at
+    :data:`CROSSOVER_SIZES` (:func:`crossover`), verify_baseline,
     nonpow2_sweep --big, drive --iters 8, the three examples, entry,
     scaling at world size 1 and baseline_scale; then the counting engine
     through the bench at 2**28 and the drive. Each step raises on a
@@ -3015,7 +3100,7 @@ def phase_harness(card: str) -> int:
     rank-and-scatter and bucket-scan kernels' of its counting steps."""
     from tinyhipradixsort_torch import bench
     from tinyhipradixsort_torch import entry as entry_mod
-    from tinyhipradixsort_torch.benchmarks import full, scaling
+    from tinyhipradixsort_torch.benchmarks import scaling
     from tinyhipradixsort_torch.examples import helloworld, segmented, soak
     from tinyhipradixsort_torch.tools import (baseline_scale, drive,
                                               nonpow2_sweep, verify_baseline)
@@ -3032,12 +3117,15 @@ def phase_harness(card: str) -> int:
             line = bench.run(n, 5, "full", "auto", "cuda")
         finally:
             be.MARK = None
-        want = "padded" if n & (n - 1) == 0 else "segmented"
-        if routes[0] != want:
-            raise AssertionError(f"bench n={n}: route {routes[0]}, not {want}")
+        # "auto" runs counting at both sizes (1-D, from
+        # sort.AUTO_COUNTING_MIN_N): no network route
+        engine = line["method"]
+        if engine != "counting" or routes:
+            raise AssertionError(f"bench n={n}: engine {engine}, routes "
+                                 f"{routes[:1]}; not counting, none")
         host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
         log("13 harness", f"bench n={n} --verify full: "
-            f"{time.perf_counter() - t0:.3f} s in all, routes "
+            f"{time.perf_counter() - t0:.3f} s in all, engine {engine}, routes "
             f"{ {r: routes.count(r) for r in dict.fromkeys(routes)} }, peak "
             f"device memory {line['peak_device_bytes'] / 2**30:.3f} GiB "
             f"(keys {4 * n / 2**30:.3f} GiB), the oracle took "
@@ -3049,11 +3137,7 @@ def phase_harness(card: str) -> int:
                 "stable sort checked the bench")
         torch.cuda.empty_cache()
 
-    table, _ = _step("matrix --sizes 1M,16M,256M (best of 3, CUDA events)",
-                     lambda out: full.run(("1M", "16M", "256M"), 3, "auto",
-                                          "cuda", out=out))
-    for row in table["results"]:
-        log("13 harness", f"matrix {json.dumps(row)}")
+    crossover(card)
     torch.cuda.empty_cache()
     _step("verify_baseline", lambda out: verify_baseline.verify("cuda",
                                                                  out=out))

@@ -3,8 +3,9 @@ histogram with and without run sums, the counting engine's bucket scan on
 both its routes and rank-and-scatter with its payloads, and the two
 probes):
 against their plain PyTorch versions,
-through the public entry points (the bitonic and the portable engines, a
-donated sort, the partition front-end, the distributed sort on a one-rank
+through the public entry points (the bitonic and the portable engines,
+the engine ``"auto"`` picks on each side of ``sort.AUTO_COUNTING_MIN_N``
+and what it records, a donated sort, the partition front-end, the distributed sort on a one-rank
 NCCL group with both index widths and donated, ``utils.time_fn``), their
 input checks, and the recorder's launch spans against the kernels' own
 counters. Marked ``cuda``; each test skips where
@@ -25,6 +26,7 @@ import torch
 import torch.distributed as dist
 
 import tinyhipradixsort_torch as tthrs
+from tinyhipradixsort_torch import sort as tsort
 from tinyhipradixsort_torch import tracing
 from tinyhipradixsort_torch.ops import bitonic_engine as tbe
 from tinyhipradixsort_torch.ops import counting_engine as tce
@@ -804,6 +806,82 @@ def test_numpy_inputs_go_to_the_card(cuda):
     assert tthrs.segment_ids_from_offsets([0, 10], 20).is_cuda
 
 
+AUTO_CASES = ["u32 keys", "u32+u32 pairs", "f32 specials", "descending",
+              "12-bit window", "sort_indices"]
+
+
+def _auto_call(case, n, cuda):
+    """``call(method)``: the case's sort of n seeded keys by ``method``."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n)
+    w = torch.randint(-2**31, 2**31, (n,), generator=gen, device=cuda,
+                      dtype=torch.int64).to(torch.int32)
+    keys = w.view(torch.uint32)
+    if case == "f32 specials":
+        # random bits hold NaNs of every payload and denormals; then -0.0,
+        # +0.0 and both infinities
+        for i, bits in enumerate((-2**31, 0, 0x7F800000, 0xFF800000 - 2**32)):
+            w[i::97] = bits
+        keys = w.view(torch.float32)
+    vals = torch.arange(n, dtype=torch.int32, device=cuda)
+
+    def call(method):
+        if case == "u32+u32 pairs":
+            return tthrs.sort_pairs(keys, vals, method=method)
+        if case == "descending":
+            return (tthrs.sort_keys(keys, order="descending", method=method),)
+        if case == "12-bit window":
+            return tthrs.sort_pairs(keys, vals, start_bit=10, end_bit=22,
+                                    method=method)
+        if case == "sort_indices":
+            return (tthrs.sort_indices(keys, method=method),)
+        return (tthrs.sort_keys(keys, method=method),)
+    return call
+
+
+def _same(got, want) -> bool:
+    ints = {4: torch.int32, 8: torch.int64}
+    return all(torch.equal(g.view(ints[g.element_size()]),
+                           w.view(ints[w.element_size()]))
+               for g, w in zip(got, want, strict=True))
+
+
+@pytest.mark.parametrize("case", AUTO_CASES)
+def test_auto_sorts_on_counting_from_its_min_n_on_the_card(cuda, case,
+                                                           monkeypatch):
+    # at AUTO_COUNTING_MIN_N "auto" runs the counting engine, bit-equal to
+    # it and to argsort; one key fewer, it runs the network
+    routes = []
+    monkeypatch.setattr(tbe, "MARK", lambda event, name, words: routes.append(
+        name) if event == "route" else None)
+    for n, engine in ((tsort.AUTO_COUNTING_MIN_N, "counting"),
+                      (tsort.AUTO_COUNTING_MIN_N - 1, "bitonic")):
+        call = _auto_call(case, n, cuda)
+        routes.clear()
+        before = tce.KERNEL_LAUNCHES
+        got = call("auto")
+        assert (tce.KERNEL_LAUNCHES > before) == (engine == "counting")
+        assert bool(routes) == (engine == "bitonic"), routes
+        for method in (engine, "argsort"):
+            assert _same(got, call(method)), (n, method)
+
+
+@pytest.mark.parametrize("n,counter", [
+    (160_000_000, "auto.counting"),
+    (tsort.AUTO_COUNTING_MIN_N - 1, "auto.network")])
+def test_auto_records_the_engine_it_chose_on_the_card(cuda, n, counter):
+    x = torch.randint(-2**31, 2**31, (n,), device=cuda,
+                      dtype=torch.int64).to(torch.int32).view(torch.uint32)
+    with tracing.record() as rec:
+        tthrs.sort_keys(x)
+        tthrs.sort_keys(x, method="bitonic")
+    (auto,) = [i for i in rec.instants if i.name == "sort.auto"]
+    engine = "counting" if counter == "auto.counting" else "bitonic"
+    assert auto.call == 1 and auto.attrs == {"engine": engine, "n": n}
+    assert {k: v for k, v in rec.counts.items()
+            if k[1].startswith("auto.")} == {(1, counter): 1}
+
+
 @pytest.mark.parametrize("m,rounds", [
     (1, 5), (4096, 2048), (16384, 3),
     (8, 100), (16, 33),        # m < 32: lanes wrap inside the table
@@ -921,20 +999,21 @@ def test_scaling_on_a_one_rank_nccl_group(cuda, tmp_path):
 
 def test_partition_route_through_sort_pairs(cuda, monkeypatch):
     # the MSB-partition front-end at 2**24 u32+u32 pairs (its default
-    # partition_min_n), bit-exact against the direct network and numpy
+    # partition_min_n), bit-exact against the direct network and numpy;
+    # "auto" would take counting at this n, so both name the network
     n = 1 << 24
     gen = torch.Generator(device=cuda)
     gen.manual_seed(24)
     keys = torch.randint(-2**31, 2**31, (n,), generator=gen, device=cuda,
                          dtype=torch.int64).to(torch.int32).view(torch.uint32)
     vals = torch.arange(n, dtype=torch.int32, device=cuda)
-    direct = tthrs.sort_pairs(keys, vals)
+    direct = tthrs.sort_pairs(keys, vals, method="bitonic")
     routes = []
     monkeypatch.setattr(tbe, "MARK", lambda event, name, words: routes.append(
         name) if event == "route" else None)
     monkeypatch.setenv("THRS_PARTITION_BITS", "8")
     before = tbe.KERNEL_LAUNCHES
-    k, v = tthrs.sort_pairs(keys, vals)
+    k, v = tthrs.sort_pairs(keys, vals, method="bitonic")
     assert "partition" in routes and tbe.KERNEL_LAUNCHES > before, routes
     assert torch.equal(k, direct[0]) and torch.equal(v, direct[1])
     x = _bits(keys)

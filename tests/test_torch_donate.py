@@ -1,13 +1,19 @@
-"""``method="auto"`` follows the keys' device, and ``donate=True`` writes
-the result into the caller's tensors (the reference's result-replaces-input
-rule, hpp:936-943; the JAX package donates the buffers).
+"""``method="auto"`` follows the keys' device and what the call shows, and
+``donate=True`` writes the result into the caller's tensors (the
+reference's result-replaces-input rule, hpp:936-943; the JAX package
+donates the buffers).
 
 On CPU tensors ``"auto"`` is the argsort engine, as the JAX package picks
-argsort off the TPU: no bitonic route is taken. A donated sort returns the
+argsort off the TPU: no bitonic route is taken. On CUDA tensors it is the
+counting engine for 1-D keys from ``sort.AUTO_COUNTING_MIN_N`` with no
+``segment_ids`` and no ``donate``, and the bitonic network for every
+other call. A donated sort returns the
 caller's own tensors holding the stable result, bit-exact against the JAX
 package, and on a route without padding the network sweeps the caller's
 storage itself.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -56,10 +62,88 @@ def test_auto_on_cpu_runs_argsort(monkeypatch):
     assert_bits_equal(vv, np.argsort(x, kind="stable"))
     tthrs.RadixSort().sort_keys(to_torch(x))
     assert routes == [] and len(calls) == 3
-    assert tsort._resolve_method("auto", torch.device("cpu")) == "argsort"
-    assert tsort._resolve_method("auto", torch.device("cuda")) == "bitonic"
+    assert tsort._resolve_method("auto", to_torch(x)) == "argsort"
     tthrs.sort_keys(to_torch(x), method="bitonic")
     assert routes[:1] == ["segmented"]
+
+
+_MIN = tsort.AUTO_COUNTING_MIN_N
+
+
+class _Keys:
+    """What the route reads of a keys tensor (device, ndim, numel), at
+    sizes no test allocates and on a device this machine may lack."""
+
+    def __init__(self, device, *shape):
+        self.device, self.ndim, self._n = (torch.device(device), len(shape),
+                                           math.prod(shape))
+
+    def numel(self):
+        return self._n
+
+
+@pytest.mark.parametrize("method,keys,kw,want", [
+    pytest.param("auto", _Keys("cuda", _MIN), {}, "counting", id="at-the-min"),
+    pytest.param("auto", _Keys("cuda", 160_000_000), {}, "counting",
+                 id="160M"),
+    pytest.param("auto", _Keys("cuda", 2**31 - 1), {}, "counting",
+                 id="below-2**31"),
+    pytest.param("auto", _Keys("cuda", _MIN - 1), {}, "bitonic",
+                 id="one-below-the-min"),
+    pytest.param("auto", _Keys("cuda", 1 << 20), {}, "bitonic", id="1M"),
+    pytest.param("auto", _Keys("cuda", 0), {}, "bitonic", id="empty"),
+    pytest.param("auto", _Keys("cuda", 4096, 4096), {}, "bitonic",
+                 id="2-D-rows"),
+    pytest.param("auto", _Keys("cuda", _MIN), dict(segmented=True), "bitonic",
+                 id="segment_ids"),
+    pytest.param("auto", _Keys("cuda", _MIN), dict(donate=True), "bitonic",
+                 id="donate"),
+    pytest.param("auto", _Keys("cuda", 1, _MIN), {}, "bitonic",
+                 id="one-2-D-row"),
+    pytest.param("auto", _Keys("cuda:1", _MIN), {}, "counting",
+                 id="second-card"),
+    pytest.param("auto", _Keys("cuda", 2 * _MIN),
+                 dict(segmented=True, donate=True), "bitonic",
+                 id="segment_ids-donated"),
+    pytest.param("auto", _Keys("cuda", 2**31), {}, "counting", id="2**31"),
+    pytest.param("auto", _Keys("cuda", 2**31 + 100), {}, "counting",
+                 id="u32Large"),
+    pytest.param("auto", _Keys("cpu", _MIN), {}, "argsort", id="cpu"),
+    pytest.param("auto", _Keys("cpu", 8, 8), {}, "argsort", id="cpu-rows"),
+    pytest.param("bitonic", _Keys("cuda", _MIN), {}, "bitonic",
+                 id="explicit-bitonic"),
+    pytest.param("counting", _Keys("cuda", 8, 8), dict(segmented=True),
+                 "counting", id="explicit-counting"),
+    pytest.param("argsort", _Keys("cuda", _MIN), {}, "argsort",
+                 id="explicit-argsort"),
+    pytest.param("lsd_argsort", _Keys("cpu", 0), {}, "lsd_argsort",
+                 id="explicit-lsd_argsort"),
+])
+def test_auto_resolves_by_what_the_call_shows(method, keys, kw, want):
+    assert tsort._resolve_method(method, keys, **kw) == want
+
+
+def test_the_route_reads_what_the_call_carries(monkeypatch):
+    # the public calls hand the route the keys as validated, whether
+    # segment ids came and the donation; a THRS_* knob of the network does
+    # not move it
+    seen = []
+    real = tsort._resolve_method
+    monkeypatch.setattr(tsort, "_resolve_method", lambda method, keys, **kw:
+                        seen.append((method, tuple(keys.shape), kw))
+                        or real(method, keys, **kw))
+    monkeypatch.setenv("THRS_CROSS_G_MAX", "6")
+    x = to_torch(rand_keys(np.random.default_rng(RNG_SEED), np.uint32, 1200))
+    tthrs.sort_keys(x, segment_ids=torch.zeros(1200, dtype=torch.int32))
+    tthrs.sort_pairs(x.view(3, 400), x.view(3, 400), method="bitonic")
+    tthrs.sort_indices(x.clone(), donate=True)
+    assert seen == [
+        ("auto", (1200,), dict(segmented=True, donate=False)),
+        ("bitonic", (3, 400), dict(segmented=False, donate=False)),
+        ("auto", (1200,), dict(segmented=False, donate=True)),
+    ]
+    with pytest.raises(ValueError, match="unknown method"):
+        tsort._resolve_method("radix", x)
 
 
 @pytest.mark.parametrize("dtype,n", [

@@ -11,6 +11,7 @@ import os
 import runpy
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -152,6 +153,14 @@ def test_call_times_counts_its_reps():
     assert len(times) == 3 and all(t >= 0 for t in times)
 
 
+def test_call_times_by_the_host_clock():
+    # the host's clock around the whole call: a call that sleeps reads its
+    # sleep at least
+    times = call_times(lambda a: time.sleep(0.002) or a + 1, torch.ones(8),
+                       reps=2, host_clock=True)
+    assert len(times) == 2 and min(times) >= 0.002
+
+
 def test_helloworld_prints_the_jax_helloworlds_lines(capsys):
     runpy.run_path(str(ROOT / "examples" / "helloworld.py"),
                    run_name="jax_helloworld")["main"]()
@@ -229,7 +238,8 @@ def test_matrix_rows_have_the_jax_fields():
     for name, kind, shape, vkind in [
             ("keys u32", "u32", 3000, None), ("keys f32", "f32", 2048, None),
             ("keys u64", "u64", 3000, None), ("pairs u32", "u32", 2048, "u32"),
-            ("pairs u64", "u64", 3000, "u64"), ("rows", "u32", (16, 100), None)]:
+            ("pairs u64", "u64", 3000, "u64"), ("keys f16", "f16", 3000, None),
+            ("pairs u128", "u32", 2048, "u128"), ("rows", "u32", (16, 100), None)]:
         row = full.run_row(name, kind, shape, vkind, reps=1, method="bitonic",
                            gen=gen, dev=CPU)
         for key in ("workload", "n", "ours_s", "ours_keys_per_s",
@@ -239,6 +249,13 @@ def test_matrix_rows_have_the_jax_fields():
         assert row["n"] == n and row["reps"] in (1, 10)
         assert row["speedup_vs_torch"] == pytest.approx(
             row["torch_s"] / row["ours_s"])
+        assert row["engine"] == "bitonic"
+        assert row["ours_s"] <= row["ours_median_s"] <= row["ours_p95_s"]
+    # the engine "auto" resolves to on the CPU
+    row = full.run_row("keys u32", "u32", 3000, None, reps=4, method="auto",
+                       gen=gen, dev=CPU)
+    assert row["engine"] == "argsort" and row["reps"] in (4, 40)
+    assert row["torch_s"] <= row["torch_median_s"] <= row["torch_p95_s"]
 
 
 class _FakeMesh:

@@ -65,7 +65,7 @@ def test_one_root_span_per_call(api, method):
                 tthrs.sort_keys(x, method=method)
             else:
                 tthrs.sort_pairs(x, torch.arange(3000), method=method)
-    roots = [s for s in rec.spans if s.parent is None]
+    roots = [s for s in _work(rec.spans) if s.parent is None]
     assert [s.name for s in roots] == [api] * calls
     assert sorted(s.call for s in roots) == list(range(1, calls + 1))
     engine = "counting.sort" if method == "counting" else "bitonic.sort_words"
@@ -500,3 +500,23 @@ def test_psort_records_its_steps_on_four_ranks(recorded_world, name, fn,
         counts = {(c, k): v for c, k, v in got["counts"]}
         _check_psort_call(spans, counts, f"psort_{fn}", 4, me, lengths,
                           got["wire"])
+
+
+def test_auto_records_the_engine_it_chose_and_counts_it():
+    # an explicit method records no route of "auto"; on the CPU "auto" is
+    # argsort (the counters auto.counting and auto.network are the card's)
+    with tracing.record() as rec:
+        tthrs.sort_keys(_keys(3000))
+        tthrs.sort_pairs(_keys(2000).view(4, 500), torch.arange(2000).view(
+            4, 500), method="auto")
+        tthrs.sort_indices(_keys(3000), method="argsort")
+    roots = {s.call: s for s in _work(rec.spans) if s.parent is None}
+    autos = [i for i in rec.instants if i.name == "sort.auto"]
+    assert [(i.call, i.attrs) for i in autos] == [
+        (1, {"engine": "argsort", "n": 3000}),
+        (2, {"engine": "argsort", "n": 2000})]
+    assert all(i.parent == roots[i.call].id for i in autos)
+    assert {k: v for k, v in rec.counts.items()
+            if k[1].startswith("auto.")} == {(1, "auto.argsort"): 1,
+                                             (2, "auto.argsort"): 1}
+    assert sorted(roots) == [1, 2, 3]

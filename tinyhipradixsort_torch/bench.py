@@ -4,8 +4,10 @@ metric (the counterpart of the JAX repo's ``bench.py``).
 Headline: u32 keys/s of one ``sort_keys`` on one card, n = 2**28 by
 default, the keys drawn as ``default_rng(0).integers(0, 2**32, n, uint32)``
 (the JAX bench's keys); ``vs_baseline`` is against BASELINE.json's target
-of 1e9 u32 keys/s per chip. ``method="auto"`` is the bitonic engine on the
-card.
+of 1e9 u32 keys/s per chip. ``method="auto"`` resolves as ``sort.py``
+resolves it for n 1-D keys: on the card the counting engine from
+``sort.AUTO_COUNTING_MIN_N`` keys (u32Large too), the bitonic engine below
+it; the line's ``"method"`` names the engine that ran.
 
 Timing: one untimed warm-up call, then CUDA events around each of
 ``--reps`` calls (the host clock with ``--device cpu``); ``wall_s`` is the
@@ -93,11 +95,12 @@ def run(n: int = 1 << 28, reps: int = 5, verify: str = "full",
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
     line = {"metric": "sort_keys_u32_keys_per_s", "unit": "keys/s", "n": n,
-            "method": sort_mod._resolve_method(method, dev),
+            "method": None,
             "platform": dev.type, "device": device_name(dev),
             "reps": reps, "verify": verify, "oracle": None, "oracle_s": None}
     try:
         x = to_device(keys, dev)
+        line["method"] = sort_mod._resolve_method(method, x)
         out = sort_mod.sort_keys(x, method=method)  # warm-up
         times = []
         for _ in range(reps):

@@ -7,20 +7,27 @@ cub::DeviceRadixSort in the reference).
 Rows, for each size of ``--sizes``: ``sort_keys`` of u32, f32 and u64 keys,
 ``sort_pairs`` of u32+u32 and u64+u64; then ``sort_keys`` of 4096x4096 u32
 rows. Keys come from a seeded ``torch.Generator`` on the device (random
-bits; f32 from ``randn``), values ``arange(n)``. The comparison sorts
+bits; f32 from ``randn``), values ``arange(n)``. :func:`run_row` also
+takes f16 keys (``randn``) and u128 values (``(n, 4)`` words counting up). The comparison sorts
 the same keys: unsigned keys through their signed view with the sign bit
 flipped (the same order), pairs as that sort plus a gather of the values
 by its permutation, rows with ``dim=-1``. Each row checks that both
 columns agree bit for bit.
 
-Timing: CUDA events around single calls after a warm-up call (the host
-clock with ``--device cpu``); ``*_s`` is the best of ``--reps`` calls and
-``*_median_s`` their median, with ten times the calls for a sort whose
-median is below 1 ms. Every row runs both columns: a row that does not fit
-on the card fails.
+Timing: the host's clock around single calls after a warm-up call, from
+a synchronized device until the call's work is done, as a caller waits
+for it (``utils.call_times(host_clock=True)``). ``*_s`` is the best of
+``--reps`` calls, ``*_median_s`` their median and ``*_p95_s`` their 95th percentile, with
+ten times the calls for a sort whose median is below 1 ms. Each row's
+``engine`` is the one ``--method`` resolves to for its shape. Every row
+runs both columns: a row that does not fit on the card fails.
 
     python -m tinyhipradixsort_torch.benchmarks.full [--sizes 1M,16M,256M]
         [--reps 3] [--method auto] [--device cuda|cpu] [--out PATH]
+
+``--sizes`` takes any of :data:`SIZES`; ``1M,2M,4M,8M,16M,64M,256M``
+through ``bitonic`` and ``counting`` is the table that places
+``sort.AUTO_COUNTING_MIN_N``.
 
 The markdown table goes to stdout; JSON only to ``--out``.
 """
@@ -37,7 +44,8 @@ from .. import sort as sort_mod
 from ..tools import device, device_name
 from ..utils import call_times
 
-SIZES = {"1M": 1 << 20, "16M": 1 << 24, "64M": 1 << 26, "256M": 1 << 28}
+SIZES = {"1M": 1 << 20, "2M": 1 << 21, "4M": 1 << 22, "8M": 1 << 23,
+         "16M": 1 << 24, "64M": 1 << 26, "256M": 1 << 28}
 SEED = 0
 _SIGN32 = -(1 << 31)
 _SIGN64 = -(1 << 63)
@@ -68,8 +76,10 @@ def _words(n: int, gen: torch.Generator, dev) -> torch.Tensor:
 
 def make_keys(kind: str, n: int, gen: torch.Generator, dev):
     """(keys, their signed view that orders as the keys do)."""
-    if kind == "f32":
-        keys = torch.randn(n, generator=gen, device=dev)
+    if kind in ("f32", "f16"):
+        keys = torch.randn(n, generator=gen, device=dev,
+                           dtype=torch.float32 if kind == "f32" else
+                           torch.float16)
         return keys, keys
     if kind == "u32":
         w = _words(n, gen, dev)
@@ -81,14 +91,17 @@ def make_keys(kind: str, n: int, gen: torch.Generator, dev):
 
 def make_values(kind: str, n: int, dev) -> torch.Tensor:
     """``arange(n)`` in the payload's width (signed: the same bits as the
-    unsigned payload, and torch gathers every signed dtype)."""
+    unsigned payload, and torch gathers every signed dtype); a u128 payload
+    is ``(n, 4)`` int32 words counting up."""
+    if kind == "u128":
+        return torch.arange(4 * n, dtype=torch.int32, device=dev).view(n, 4)
     return torch.arange(n, dtype=torch.int32 if kind == "u32" else torch.int64,
                         device=dev)
 
 
 def _ordered(t: torch.Tensor, kind: str) -> torch.Tensor:
     """Sorted keys as the comparison column holds them (its signed view)."""
-    if kind == "f32":
+    if kind in ("f32", "f16"):
         return t
     if kind == "u32":
         return t.view(torch.int32) ^ _SIGN32
@@ -101,10 +114,16 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def _times(fn, args, reps: int) -> list:
-    times = call_times(fn, *args, reps=reps)
+    times = call_times(fn, *args, reps=reps, host_clock=True)
     if statistics.median(times) < 1e-3:
-        times = call_times(fn, *args, reps=10 * reps)
+        times = call_times(fn, *args, reps=10 * reps, host_clock=True)
     return times
+
+
+def _p95(times: list) -> float:
+    if len(times) < 2:
+        return times[0]
+    return statistics.quantiles(times, n=20, method="inclusive")[-1]
 
 
 def run_row(name, kind, shape, vkind, *, reps, method, gen, dev) -> dict:
@@ -140,9 +159,13 @@ def run_row(name, kind, shape, vkind, *, reps, method, gen, dev) -> dict:
     t_ours = _times(ours, args, reps)
     t_ref = _times(ref, ref_args, reps)
     best, ref_best = min(t_ours), min(t_ref)
-    return {"workload": name, "n": n, "reps": len(t_ours),
+    return {"workload": name, "n": n,
+            "engine": sort_mod._resolve_method(method, keys),
+            "reps": len(t_ours),
             "ours_s": best, "ours_median_s": statistics.median(t_ours),
+            "ours_p95_s": _p95(t_ours),
             "torch_s": ref_best, "torch_median_s": statistics.median(t_ref),
+            "torch_p95_s": _p95(t_ref),
             "ours_keys_per_s": n / best, "torch_keys_per_s": n / ref_best,
             "speedup_vs_torch": ref_best / best}
 
@@ -166,7 +189,7 @@ def run(sizes=("1M", "16M", "256M"), reps: int = 3, method: str = "auto",
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     return {"platform": dev.type, "device": device_name(dev),
-            "method": sort_mod._resolve_method(method, dev), "results": rows}
+            "method": method, "results": rows}
 
 
 def main(argv=None) -> int:

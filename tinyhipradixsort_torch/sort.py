@@ -31,13 +31,21 @@ The portable engines ``"counting"`` (the reference's histogram, scan and
 scatter pass; its histogram is ``csrc/digit_histogram.cu``), ``"argsort"``
 and ``"lsd_argsort"`` (``torch.sort``) take the same inputs and are always
 stable. ``"auto"`` follows the keys' device, as the JAX package follows
-the platform: the bitonic engine on CUDA tensors, ``"argsort"`` elsewhere.
+the platform, and on CUDA tensors what the call shows: the counting engine
+for 1-D keys of at least ``AUTO_COUNTING_MIN_N`` with no ``segment_ids``
+and no ``donate``, the bitonic engine for every other CUDA call (2-D rows,
+smaller n, segmented or donated sorts); ``"argsort"`` elsewhere. A caller
+who tunes the network (``THRS_*``) names ``method="bitonic"``. Both CUDA engines are stable and keep ``-0.0``,
+so the route changes no output that the default ``stable=True`` and
+``zeros_exact=True`` fix.
 
 While :mod:`.tracing` records, each call of :func:`sort_keys`,
 :func:`sort_pairs` and :func:`sort_indices` is one span of that name, the
 root of a new call (validation, key bits, the network engine's word
 packing and unpacking, and the write-back are its own time), unless a
-span is already open, whose child it then is.
+span is already open, whose child it then is. An ``"auto"`` call also
+records the instant ``sort.auto`` (``engine``, ``n``) and counts
+``auto.counting`` or ``auto.network`` (``auto.argsort`` off CUDA).
 
 ``donate=True`` is the reference's rule that the result replaces the input
 (tinyhipradixsort.hpp:936-943; the JAX package donates the buffers): the
@@ -74,15 +82,31 @@ _INT_DTYPES = (torch.int8, torch.uint8, torch.int16, torch.uint16,
                torch.int32, torch.uint32, torch.int64, torch.uint64)
 
 
-def _resolve_method(method: str, device: torch.device) -> str:
-    """``"auto"`` resolves by the keys' device: the bitonic engine on CUDA,
-    ``"argsort"`` elsewhere (the JAX package picks its Pallas engine on the
-    TPU and argsort off it)."""
+#: the smallest 1-D length that ``"auto"`` sorts on the counting engine on a
+#: CUDA tensor: the smallest measured power of two from which counting beat
+#: the bitonic network at every measured size and key width on an H100
+#: (PERF.md §6, the crossover table; ``chip_smoke.crossover`` measures it)
+AUTO_COUNTING_MIN_N = 1 << 24
+
+
+def _resolve_method(method: str, keys: torch.Tensor, *,
+                    segmented: bool = False, donate: bool = False) -> str:
+    """The engine a call on ``keys`` runs. ``"auto"`` follows the keys'
+    device, as the JAX package follows the platform (its Pallas engine on
+    the TPU, argsort off it): ``"argsort"`` off CUDA; on CUDA the counting
+    engine for 1-D keys of at least ``AUTO_COUNTING_MIN_N`` with no
+    ``segment_ids`` and no ``donate``, the bitonic network otherwise: 2-D
+    rows, small n, segmented and donated calls."""
     if method not in _ENGINES:
         raise ValueError(f"unknown method {method!r}; expected one of {_ENGINES}")
     if method != "auto":
         return method
-    return "bitonic" if device.type == "cuda" else "argsort"
+    if keys.device.type != "cuda":
+        return "argsort"
+    if (keys.ndim == 1 and keys.numel() >= AUTO_COUNTING_MIN_N
+            and not segmented and not donate):
+        return "counting"
+    return "bitonic"
 
 
 def _as_input(x, what: str) -> torch.Tensor:
@@ -295,7 +319,13 @@ def _prep(keys, order, start_bit, end_bit, method, segment_ids,
     if donate:
         _check_donated(keys, "keys")
     keys = _as_input(keys, "keys")
-    method = _resolve_method(method, keys.device)
+    tuning = EngineTuning.from_env()
+    engine = _resolve_method(method, keys, segmented=segment_ids is not None,
+                             donate=donate)
+    if method == "auto" and tracing.on():
+        tracing.event("sort.auto", engine=engine, n=keys.numel())
+        tracing.count("auto.network" if engine == "bitonic"
+                      else f"auto.{engine}")
     if keys.ndim not in (1, 2):
         raise ValueError(
             "keys must be 1-D (single sort) or 2-D (batched row-wise sorts), "
@@ -303,9 +333,9 @@ def _prep(keys, order, start_bit, end_bit, method, segment_ids,
     descending = SortOrder.parse(order).descending
     start_bit, end_bit = common.resolve_window(keys.dtype, start_bit, end_bit)
     seg = _prep_segments(segment_ids, keys)
-    return keys, dict(method=method, descending=descending,
+    return keys, dict(method=engine, descending=descending,
                       start_bit=start_bit, end_bit=end_bit, seg=seg,
-                      donate=donate)
+                      donate=donate, tuning=tuning)
 
 
 def sort_keys(keys, *, order="ascending", start_bit=0, end_bit=None,
@@ -332,8 +362,7 @@ def sort_keys(keys, *, order="ascending", start_bit=0, end_bit=None,
         keys, kw = _prep(keys, order, start_bit, end_bit, method,
                          segment_ids, donate)
         (out,) = _sort_entry(keys, None, want=("keys",),
-                             zeros_exact=zeros_exact,
-                             tuning=EngineTuning.from_env(), **kw)
+                             zeros_exact=zeros_exact, **kw)
     return out
 
 
@@ -361,8 +390,7 @@ def sort_pairs(keys, values, *, order="ascending", start_bit=0, end_bit=None,
         keys, kw = _prep(keys, order, start_bit, end_bit, method,
                          segment_ids, donate)
         return _sort_entry(keys, values, want=("keys", "values"),
-                           zeros_exact=zeros_exact, stable=stable,
-                           tuning=EngineTuning.from_env(), **kw)
+                           zeros_exact=zeros_exact, stable=stable, **kw)
 
 
 def sort_indices(keys, *, order="ascending", start_bit=0, end_bit=None,
@@ -374,8 +402,7 @@ def sort_indices(keys, *, order="ascending", start_bit=0, end_bit=None,
     with tracing.span("sort_indices"):
         keys, kw = _prep(keys, order, start_bit, end_bit, method,
                          segment_ids, donate)
-        (perm,) = _sort_entry(keys, None, want=("indices",),
-                              tuning=EngineTuning.from_env(), **kw)
+        (perm,) = _sort_entry(keys, None, want=("indices",), **kw)
     return perm
 
 

@@ -229,7 +229,11 @@ class Drive:
     # -- the reference-density tier (tests/test_full_matrix.py) -----------
 
     def density(self, iters: int, max_n: int = MAX_N) -> None:
-        engine = sort_mod._resolve_method(self.method, self.dev)
+        # the draws follow the engine of the tier's calls, whose n stay
+        # below max_n
+        engine = sort_mod._resolve_method(
+            self.method, torch.empty(max_n - 1, dtype=torch.uint8,
+                                     device=self.dev))
         for dt in (np.uint32, np.int32, np.float32, np.uint64, np.int64,
                    np.float64):
             name = np.dtype(dt).name

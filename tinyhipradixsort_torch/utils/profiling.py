@@ -85,14 +85,24 @@ def time_call(fn, *args, on_cuda: bool | None = None):
     return time.perf_counter() - t0, out
 
 
-def call_times(fn, *args, reps: int = 5, warmup: int = 1) -> list:
+def call_times(fn, *args, reps: int = 5, warmup: int = 1,
+               host_clock: bool = False) -> list:
     """The time of each of ``reps`` calls of ``fn(*args)`` in seconds,
-    after ``warmup`` untimed calls (:func:`time_call`)."""
+    after ``warmup`` untimed calls (:func:`time_call`). With ``host_clock``
+    each call is timed by the host's clock from a synchronized device until
+    its work is done (:class:`Stopwatch`), as a caller waits for it."""
     on_cuda = _on_cuda(args)
     for _ in range(max(warmup, 1)):
         fn(*args)
     _sync()
-    return [time_call(fn, *args, on_cuda=on_cuda)[0] for _ in range(reps)]
+    if not host_clock:
+        return [time_call(fn, *args, on_cuda=on_cuda)[0] for _ in range(reps)]
+    times = []
+    for _ in range(reps):
+        sw = Stopwatch().start()
+        fn(*args)
+        times.append(sw.stop())
+    return times
 
 
 def time_fn(fn, *args, reps: int = 5, warmup: int = 1,
