@@ -94,11 +94,9 @@ Phases, one output line each (time, kernel launches, result):
    turns with it (a call and the kernel alone); the bucket scan at 2**28
    (width 8, tile 2048; int32 and int64 offsets) given the run sums and
    without, a call and each route's kernels alone, beside its plain
-   version, torch.cumsum of the bucket-major counts and its bound, with
-   the copy that made the earlier stage 2's offsets contiguous timed
-   alone; the rank-and-scatter kernel
-   on one pass at 2**28 (width 8, tile 2048) for each set of output
-   streams (``STREAM_ROWS``: bits, the sort_keys pass; + src; + a u32
+   version, torch.cumsum of the bucket-major counts and its bound; the
+   rank-and-scatter kernel on one pass at 2**28 (width 8, tile 2048) for
+   each set of output streams (``STREAM_ROWS``: bits, the sort_keys pass; + src; + a u32
    payload, the sort_pairs pass; + src + a u32 payload; + a 16-byte
    payload; u64 bits + a u64 payload; u64 bits + src; bits and bits + src
    on digits that fill whole aligned lines), each with its bytes, its
@@ -110,17 +108,8 @@ Phases, one output line each (time, kernel launches, result):
    ``counting_engine.GATHERED``) beside torch.sort and the bitonic
    sort_keys, each with its per-stage breakdown (CUDA events at the ends
    of the engine's ``counting.*`` stage spans, through
-   ``tracing.observe``), and each beside the same
-   sort with stage 2 done as before the bucket-scan kernel (``scan_ab``:
-   the bucket-major cumsum and the copy rank_scatter then made), in turns,
-   as are the three row cells of phase 5 through the counting engine.
-   ``counting_only`` runs phases 2 (the counting kernels), 7 and 10 alone,
-   and, given
-   another rank_scatter.cu with the bits-and-src C interface of the
-   kernel before payloads, the A/B against it (``rank_scatter_ab``), and,
-   given another bucket_scan.cu with the C interface before run sums, the
-   A/B of stage 2, of stages 1-2 and of the counting sorts against it in
-   turns (``scan_parent_ab``);
+   ``tracing.observe``). ``counting_only`` runs phases 2 (the counting
+   kernels), 7 and 10 alone;
 11. the distributed sort on a one-rank NCCL group (NCCL allows one rank per
    card): psort_keys ascending, descending and with the two-word index
    (_force_wide), psort_pairs with a u32 payload, psort_indices with both
@@ -148,13 +137,7 @@ Phases, one output line each (time, kernel launches, result):
    counters psort.wire_bytes and psort.host_reads; alone, on four cards:
    ``CUDA_VISIBLE_DEVICES=0,1,2,3 python3 -c "import chip_smoke as c;
    c.phase_psort_group(c.card_line())"``;
-12. the MSB-partition front-end (ops/partition_engine.py) at
-   partition_bits=8 against the direct network: sort_pairs u32+u32 and
-   sort_keys u32 of 2**28 uniform keys (route "partition") and sort_keys
-   of 2**28 zipf(1.3) keys (route "partition-fallback"), each bit-exact
-   against the host oracle, timed (median of 5, CUDA events) and broken
-   down by step at MARK;
-13. the harness layer in process, on phase 11's group: the bench
+12. the harness layer in process, on phase 11's group: the bench
    (``tinyhipradixsort_torch.bench``) at 2**28 and at the reference's
    u32Large n = 2**31 + 100 (unittest.cpp:688-717), each with --verify full
    (bit-exact against the host oracle) and its JSON line, its engine (the
@@ -183,8 +166,6 @@ phases 5 and 6 alone (see there).
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
 import dataclasses
 import json
 import os
@@ -192,7 +173,6 @@ import re
 import resource
 import socket
 import statistics
-import subprocess
 import sys
 import time
 import traceback
@@ -1764,10 +1744,8 @@ def phase_bucket_scan_timing(x: torch.Tensor, card: str) -> dict:
     at 2**28 u32, width 8, tile 2048), int32 and int64 offsets: a call
     given stage 1's run sums (the engine's route) and without them, each
     route's kernels alone, beside its plain version, torch.cumsum of the
-    bucket-major flat counts and its bound; the earlier stage 2 (the
-    bucket-major cumsum, then the copy that rank_scatter made contiguous)
-    and that copy alone. Returns the engine route's int32 numbers for the
-    report. The kernel scans the run sums in place, so the timed calls
+    bucket-major flat counts and its bound. Returns the engine route's
+    int32 numbers for the report. The kernel scans the run sums in place, so the timed calls
     after the first scan sums already scanned: the work and the bytes do
     not depend on their values (the sums wrap as unsigned)."""
     tile = counting_engine.DEFAULT_TILE
@@ -1792,13 +1770,6 @@ def phase_bucket_scan_timing(x: torch.Tensor, card: str) -> dict:
                           20)
         plain_ms = cuda_ms(
             lambda: hist.bucket_offsets_reference(counts, tile, idx_dt), 5)
-        old = _old_stage2(counts, tile, idx_dt)
-        old_ms = cuda_ms(lambda: _old_stage2(counts, tile, idx_dt), 5)
-        copy_ms = cuda_ms(old.contiguous, 20)
-        if old.is_contiguous():
-            raise AssertionError("the earlier stage 2's offsets are "
-                                 "contiguous: the copy timed is no copy")
-        del old
         alone = _kernels_alone(lambda: hist.bucket_offsets(
             counts, tile, idx_dt, run_sums=sums), SCAN_KERNELS, 10)
         bare = _kernels_alone(lambda: hist.bucket_offsets(
@@ -1820,10 +1791,8 @@ def phase_bucket_scan_timing(x: torch.Tensor, card: str) -> dict:
             f"int32 counts {library_ms:.6f} ms, bound {bound_ms:.6f} ms "
             f"({moved} bytes: counts and run sums read, offsets written, at "
             f"3.35 TB/s; a call with the run sums at "
-            f"{100 * bound_ms / ms:.1f}% of it); the earlier stage 2 "
-            f"{old_ms:.6f} ms and the copy rank_scatter then made of it "
-            f"{copy_ms:.6f} ms; median of 20 (plain and earlier: 5), CUDA "
-            f"events; card: {card}")
+            f"{100 * bound_ms / ms:.1f}% of it); median of 20 (plain: 5), "
+            f"CUDA events; card: {card}")
         if result is None:
             result = {"ms": ms, "plain_ms": plain_ms, "bytes": moved,
                       "ops": counts.numel(), "library_ms": library_ms}
@@ -1859,17 +1828,6 @@ def _kernels_alone(fn, names, reps: int) -> dict:
     if missing:
         raise AssertionError(f"the profiler traced no {missing}")
     return {name: statistics.median(t) for name, t in times.items()}
-
-
-def _old_stage2(counts: torch.Tensor, tile: int, idx_dtype: torch.dtype,
-                run_sums=None) -> torch.Tensor:
-    """Stage 2 as the counting pass did it before the bucket-scan kernel:
-    each row's bucket-major cumsum plus the row's start, left in the
-    bucket-major strides that rank_scatter then copied to contiguous."""
-    R, Tr, _ = counts.shape
-    base = hist.exclusive_scan_bucket_major(counts.to(idx_dtype))
-    row0 = torch.arange(R, dtype=idx_dtype, device=counts.device) * (Tr * tile)
-    return base + row0.view(R, 1, 1)
 
 
 #: the rank-and-scatter kernel's integer operations per element at width
@@ -2113,76 +2071,14 @@ def phase_counting_timing(x: torch.Tensor, bitonic_ms, card: str) -> None:
         bits, [], 0, 32, with_bits=True), card, "sort_keys u32")
     _stage_breakdown(lambda: counting_engine.sort_arrays_counting(
         bits, [vals], 0, 32, with_bits=True), card, "sort_pairs u32+u32")
-    with _earlier_stage2():
-        _stage_breakdown(lambda: counting_engine.sort_arrays_counting(
-            bits, [], 0, 32, with_bits=True), card,
-            "sort_keys u32 (earlier stage 2)")
-    del bits
-    # the row cells of phase 5 (rows of at most 128 tiles: one scan kernel)
-    rows = [x[:1 << 24].view(4096, 4096), x[:1 << 24].view(16384, 1024),
-            x[:4096 * 1040].view(4096, 1040)]
-    row_vals = vals[:1 << 24].view(16384, 1024)
-    scan_ab([(f"{what} n=2**28", call) for what, call in calls] + [
-        ("sort_keys u32 rows 4096x4096",
-         lambda: thrs.sort_keys(rows[0], method="counting")),
-        ("sort_pairs u32+u32 rows 16384x1024",
-         lambda: thrs.sort_pairs(rows[1], row_vals, method="counting")),
-        ("sort_keys u32 rows 4096x1040",
-         lambda: thrs.sort_keys(rows[2], method="counting"))], card)
-    del rows, row_vals
-    del vals
+    del bits, vals
     torch.cuda.empty_cache()
 
 
-@contextlib.contextmanager
-def _stages(offsets):
-    """Within the block, the counting pass takes stage 1 without run sums
-    (digit_histogram) and stage 2 from ``offsets(counts, tile, idx_dtype,
-    run_sums=None)``."""
-    saved = hist.digit_histogram_runs, hist.bucket_offsets
-
-    def counts_alone(bits, shift, width, tile, tiles_per_row):
-        return hist.digit_histogram(bits, shift, width, tile), None
-
-    hist.digit_histogram_runs, hist.bucket_offsets = counts_alone, offsets
-    try:
-        yield
-    finally:
-        hist.digit_histogram_runs, hist.bucket_offsets = saved
-
-
-def _earlier_stage2():
-    """Within the block, the counting pass takes stage 2 as it did before
-    the bucket-scan kernel (:func:`_old_stage2`)."""
-    return _stages(_old_stage2)
-
-
-def scan_ab(calls, card: str) -> None:
-    """Each counting sort of ``calls``, (label, call) pairs, with stage 2
-    as before the bucket-scan kernel (earlier) and through it (kernel), in
-    one process, in turns: earlier, kernel, kernel, earlier; median of 5
-    each."""
-
-    def earlier(call):
-        with _earlier_stage2():
-            return cuda_ms(call, 5)
-
-    for what, call in calls:
-        t = [earlier(call), cuda_ms(call, 5), cuda_ms(call, 5), earlier(call)]
-        log("10 ab", f"counting {what}: earlier stage 2 / kernel / "
-            f"kernel / earlier stage 2 {t[0]:.3f} / {t[1]:.3f} / "
-            f"{t[2]:.3f} / {t[3]:.3f} ms; median of 5 each, CUDA events; "
-            f"card: {card}")
-
-
-def counting_only(parent_src=None, parent_scan=None) -> None:
+def counting_only() -> None:
     """Phases 1, 2 (the counting kernels only), 7 (run sums, bucket scan
-    and rank-and-scatter) and 10 alone; the A/B against another
-    rank_scatter.cu (bits and src only, the C interface of the kernel
-    before payloads) when ``parent_src`` names one, and against another
-    bucket_scan.cu (the C interface before run sums) when ``parent_scan``
-    does: ``python3 -c "import chip_smoke as c;
-    c.counting_only(parent_scan='old_scan.cu')"``."""
+    and rank-and-scatter) and 10 alone: ``python3 -c "import chip_smoke as
+    c; c.counting_only()"``."""
     card = card_line()
     print(card, flush=True)
     phase_build(["digit_histogram", "bucket_scan", "rank_scatter"])
@@ -2203,199 +2099,6 @@ def counting_only(parent_src=None, parent_scan=None) -> None:
     phase_bucket_scan_timing(x, card)
     phase_rank_scatter_timing(x, card)
     phase_counting_timing(x, None, card)
-    if parent_src:
-        rank_scatter_ab(x, parent_src, card)
-    if parent_scan:
-        scan_parent_ab(x, parent_scan, card)
-
-
-def _parent_bucket_scan(path: str):
-    """Build another bucket_scan.cu (the C interface before run sums:
-    counts, rows, tiles, width, tile, out, idx_bytes, scratch, stream;
-    thrs_bucket_scan_scratch(rows, tiles, width)) into the ignored build
-    directory; ``offsets(counts, tile, idx_dtype, run_sums=None)`` through
-    it, allocating as its wrapper did."""
-    out = cuda_lib.BUILD_DIR / "ab" / "libbucket_scan_parent.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(out),
-                    path], check=True, capture_output=True, text=True)
-    lib = ctypes.CDLL(str(out))
-    fn, words = lib.thrs_bucket_scan, lib.thrs_bucket_scan_scratch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    words.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
-    words.restype = ctypes.c_longlong
-
-    def offsets(counts, tile, idx_dtype, run_sums=None):
-        R, Tr, nb = counts.shape
-        o = torch.empty((R, Tr, nb), dtype=idx_dtype, device=counts.device)
-        w = words(R, Tr, nb.bit_length() - 1)
-        scratch = (torch.empty(w, dtype=torch.int64, device=counts.device)
-                   if w else None)
-        rc = fn(counts.data_ptr(), R, Tr, nb.bit_length() - 1, tile,
-                o.data_ptr(), idx_dtype.itemsize,
-                scratch.data_ptr() if scratch is not None else None,
-                torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"parent bucket scan failed: {rc}")
-        return o
-
-    return offsets
-
-
-#: the kernel names of a bucket_scan.cu before run sums (scan_parent_ab)
-PARENT_SCAN_KERNELS = ("chunk_sum_kernel", "column_scan_kernel",
-                       "chunk_write_kernel")
-
-
-def scan_parent_ab(x: torch.Tensor, parent_scan: str, card: str) -> None:
-    """This tree's stages 1-2 against another bucket_scan.cu's (the
-    parent commit's, which reads the counts twice and takes no run sums),
-    in one process, in turns (parent, change, change, parent), at 2**28
-    width 8 tile 2048: stage 2 a call and its kernels alone, int32 and
-    int64; stages 1 and 2 together (digit_histogram and the parent's scan
-    against digit_histogram_runs and the scan given the run sums); and the
-    counting sort_keys and sort_pairs with the parent's stages 1-2
-    swapped in."""
-    parent = _parent_bucket_scan(parent_scan)
-    tile, n = counting_engine.DEFAULT_TILE, x.shape[0]
-    bits = x.view(torch.int32)
-    counts, sums = hist.digit_histogram_runs(bits, 0, 8, tile, n // tile)
-    counts = counts.view(1, *counts.shape)
-    for idx_dt in (torch.int32, torch.int64):
-        want = hist.bucket_offsets_reference(counts, tile, idx_dt)
-        if not torch.equal(parent(counts, tile, idx_dt), want):
-            raise AssertionError("the parent's bucket scan != plain")
-        del want
-
-        def old():
-            return parent(counts, tile, idx_dt)
-
-        def new():
-            return hist.bucket_offsets(counts, tile, idx_dt, run_sums=sums)
-
-        t = [cuda_ms(f, 20) for f in (old, new, new, old)]
-        k = [sum(_kernels_alone(f, names, 10).values()) for f, names in (
-            (old, PARENT_SCAN_KERNELS), (new, SCAN_KERNELS),
-            (new, SCAN_KERNELS), (old, PARENT_SCAN_KERNELS))]
-        log("10 ab", f"bucket_scan {str(idx_dt)[6:]} n=2**28 width=8 "
-            f"tile={tile}: parent / change / change / parent a call "
-            f"{' / '.join(f'{v:.6f}' for v in t)} ms (median of 20, CUDA "
-            f"events); the kernels alone {' / '.join(f'{v:.6f}' for v in k)} "
-            f"ms (torch.profiler, median of 10); card: {card}")
-
-    def old12():
-        c = hist.digit_histogram(bits, 0, 8, tile)
-        return parent(c.view(1, *c.shape), tile, torch.int32)
-
-    def new12():
-        c, s = hist.digit_histogram_runs(bits, 0, 8, tile, n // tile)
-        return hist.bucket_offsets(c.view(1, *c.shape), tile, torch.int32,
-                                   run_sums=s)
-
-    if not torch.equal(old12(), new12()):
-        raise AssertionError("parent and change disagree on stages 1-2")
-    t = [cuda_ms(f, 10) for f in (old12, new12, new12, old12)]
-    log("10 ab", f"stages 1-2 int32 n=2**28 width=8 tile={tile}: parent / "
-        f"change / change / parent {' / '.join(f'{v:.6f}' for v in t)} ms; "
-        f"median of 10 each, CUDA events; card: {card}")
-    del counts, sums
-    vals = x.view(torch.int32).flip(0).view(torch.uint32)
-    for what, call in (
-            ("sort_keys u32", lambda: thrs.sort_keys(x, method="counting")),
-            ("sort_pairs u32+u32",
-             lambda: thrs.sort_pairs(x, vals, method="counting"))):
-
-        def old_sort():
-            with _stages(parent):
-                return call()
-
-        got, want = call(), old_sort()
-        if not all(torch.equal(a, b) for a, b in zip(
-                got if isinstance(got, tuple) else (got,),
-                want if isinstance(want, tuple) else (want,))):
-            raise AssertionError(f"parent and change disagree on {what}")
-        del got, want
-        t = [cuda_ms(f, 5) for f in (old_sort, call, call, old_sort)]
-        log("10 ab", f"counting {what} n=2**28: parent stages 1-2 / change "
-            f"/ change / parent {' / '.join(f'{v:.3f}' for v in t)} ms; "
-            f"median of 5 each, CUDA events; card: {card}")
-    del vals
-    torch.cuda.empty_cache()
-
-
-def _parent_rank_scatter(path: str):
-    """Build another rank_scatter.cu (the C interface before payloads:
-    bits, word_bytes, n, shift, width, tile, base, idx_bytes, bits_out,
-    src, stream) into the ignored build directory; its function."""
-    out = cuda_lib.BUILD_DIR / "ab" / "librank_scatter_parent.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(out),
-                    path], check=True, capture_output=True, text=True)
-    fn = ctypes.CDLL(str(out)).thrs_rank_scatter
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def rank_scatter_ab(x: torch.Tensor, parent_src: str, card: str) -> None:
-    """This tree's rank-and-scatter kernel against another source's (the
-    parent commit's, with the C interface before payloads), in one
-    process, in turns
-    (parent, change, change, parent), at 2**28 width 8 tile 2048: bits +
-    src (u32 and u64), and bits with the keys as one payload, which the
-    parent does as bits + src and a gather of the keys by src."""
-    parent = _parent_rank_scatter(parent_src)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED + 12)
-    tile, n = counting_engine.DEFAULT_TILE, x.shape[0]
-    for wide in (False, True):
-        bits = _random_bits(n, True, gen) if wide else x.view(torch.int32)
-        base = _stage2(bits, 0, 8, tile, 1, torch.int32).contiguous()
-        out = torch.empty_like(bits)
-        src = torch.empty(n, dtype=torch.int32, device="cuda")
-
-        def old():
-            rc = parent(bits.data_ptr(), bits.dtype.itemsize, n, 0, 8, tile,
-                        base.data_ptr(), 4, out.data_ptr(), src.data_ptr(),
-                        torch.cuda.current_stream().cuda_stream)
-            if rc:
-                raise RuntimeError(f"parent kernel failed: {rc}")
-            return out, src
-
-        def new():
-            return counting_engine.rank_scatter(bits, 0, 8, base, tile,
-                                                torch.int32)
-
-        def old_keys():
-            return old(), counting_engine.common.take(x, src)
-
-        def new_keys():
-            return counting_engine.rank_scatter(bits, 0, 8, base, tile,
-                                                torch.int32, [x], False)
-
-        old()
-        got = new()
-        torch.cuda.synchronize()
-        if not (torch.equal(got[0], out) and torch.equal(got[1], src)):
-            raise AssertionError("parent and change disagree")
-        rows = [("bits + src", old, new)]
-        if not wide:
-            rows.append(("bits + the keys as a payload (parent: bits + "
-                         "src and a gather of the keys)", old_keys, new_keys))
-        for label, a, b in rows:
-            t = [cuda_ms(f, 5) for f in (a, b, b, a)]
-            log("10 ab", f"rank_scatter {'u64' if wide else 'u32'} {label} "
-                f"n=2**28 width=8 tile={tile}: parent / change / change / "
-                f"parent {t[0]:.6f} / {t[1]:.6f} / {t[2]:.6f} / {t[3]:.6f} "
-                f"ms; median of 5 each, CUDA events; card: {card}")
-        del bits, base, out, src, got
-        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2728,122 +2431,6 @@ def merge_breakdown(fold, what: str, card: str) -> None:
             f"card: {card}")
 
 
-# ---------------------------------------------------------------------------
-# phase 12: the MSB-partition front-end against the direct network
-# ---------------------------------------------------------------------------
-
-#: the partition knob of phase 12 (the engine's default is 0: off)
-PARTITION_BITS = 8
-
-
-def _with_partition(fn):
-    """``fn`` with THRS_PARTITION_BITS set (the public API reads the
-    engine's knobs from the environment at each call)."""
-    def run():
-        old = os.environ.get("THRS_PARTITION_BITS")
-        os.environ["THRS_PARTITION_BITS"] = str(PARTITION_BITS)
-        try:
-            return fn()
-        finally:
-            if old is None:
-                del os.environ["THRS_PARTITION_BITS"]
-            else:
-                os.environ["THRS_PARTITION_BITS"] = old
-    return run
-
-
-def _routes_of(fn) -> tuple[list, object]:
-    routes = []
-    be.MARK = lambda event, name, words: (
-        routes.append(name) if event == "route" else None)
-    try:
-        out = fn()
-    finally:
-        be.MARK = None
-    return routes, out
-
-
-def partition_breakdown(fn, label: str, total_ms: float, card: str) -> None:
-    """Device time of each step of the front-end (:func:`part_times`: rank
-    sort, counts, scatter, bucket sorts, merges, or the fallback); the rest
-    (the key transform, the packing of words, the truncation) is the call's
-    time less the steps'."""
-    parts, total = part_times(fn, label)
-    rest = total - sum(ms for _, _, ms in parts)
-    steps = ", ".join(f"{name} {ms:.3f}" for name, _, ms in parts)
-    log("12 partition", f"{label} by step (ms): {steps}, the rest {rest:.3f};"
-        f" all {total:.3f} (the timed median {total_ms:.3f}); median of 3, "
-        f"CUDA events at MARK; card: {card}")
-
-
-def phase_partition(card: str) -> int:
-    """The MSB-partition front-end at partition_bits=8 through the public
-    entry points, against the direct network on the same keys: sort_pairs
-    u32+u32 and sort_keys u32 at 2**28 uniform keys (route "partition"),
-    and sort_keys of the 2**28 zipf(1.3) keys of phase 11 (route
-    "partition-fallback": the rank sort and counts are wasted). Each output
-    bit-exact against the host oracle, each call timed (median of 5, CUDA
-    events) beside the direct one and broken down by step. Returns the
-    sweep kernel's launches of the partition calls (counted from 0)."""
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED + 12)
-    n = 1 << 28
-    keys, vals = _random_u32(n, gen), _random_u32(n, gen)
-    zipf = torch.from_numpy(zipf_keys(n, SEED + 11)).cuda()
-    pool = ThreadPoolExecutor(2)
-    oracles = {"uniform": pool.submit(native_oracle.oracle_sort, _host(keys)),
-               "zipf": pool.submit(native_oracle.oracle_sort, _host(zipf))}
-    cases = {
-        "sort_pairs u32+u32 uniform": (
-            lambda: thrs.sort_pairs(keys, vals, method=NET), "uniform",
-            "partition"),
-        "sort_keys u32 uniform": (lambda: thrs.sort_keys(keys, method=NET),
-                                  "uniform", "partition"),
-        "sort_keys u32 zipf(1.3)": (lambda: thrs.sort_keys(zipf, method=NET),
-                                    "zipf", "partition-fallback"),
-    }
-    got = {}
-    be.KERNEL_LAUNCHES = 0
-    for label, (fn, _, route) in cases.items():
-        routes, out = _routes_of(_with_partition(fn))
-        got[label] = [_host(t) for t in
-                      (out if isinstance(out, tuple) else (out,))]
-        log("12 partition", f"{label}: routes {routes}")
-        if route not in routes:
-            raise AssertionError(f"{label} did not take the {route} route")
-    launches = be.KERNEL_LAUNCHES
-    log("12 partition", f"main path (3 calls at partition_bits="
-        f"{PARTITION_BITS}): sweep kernel launches={launches}")
-    if launches == 0:
-        raise AssertionError("the partition front-end launched no sweep")
-    for label, (fn, _, route) in cases.items():
-        part_ms = cuda_ms(_with_partition(fn), 5)
-        direct_ms = cuda_ms(fn, 5)
-        log("12 partition", f"{label} n=2**28: partition_bits="
-            f"{PARTITION_BITS} ({route}) {part_ms:.3f} ms, direct network "
-            f"{direct_ms:.3f} ms ({direct_ms / part_ms:.3f}x); median of 5, "
-            f"CUDA events; card: {card}")
-        partition_breakdown(_with_partition(fn), label, part_ms, card)
-    del keys, zipf
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    res = {k: f.result() for k, f in oracles.items()}
-    pool.shutdown()
-    log("12 partition", oracle_line("oracles", time.perf_counter() - t0))
-    v = _host(vals)
-    for label, (_, which, _) in cases.items():
-        srt, perm = res[which]
-        want = [srt, v[perm]] if label.startswith("sort_pairs") else [srt]
-        ok = all(np.array_equal(g, w) for g, w in zip(got[label], want))
-        log("12 partition", f"{label}: {'bit-exact' if ok else 'MISMATCH'} "
-            "vs the oracle")
-        if not ok:
-            raise AssertionError(f"partition output wrong: {label}")
-    del vals
-    torch.cuda.empty_cache()
-    return launches
-
-
 #: psort's spans, in the order a call opens them (psort.merge inside the
 #: ring's rounds, or after the last one)
 PSORT_STEPS = ("psort.relay_in", "psort.pre_exchange", "psort.local_sort",
@@ -2990,7 +2577,7 @@ def phase_psort(card: str) -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase 13: the harness layer (bench, matrix, drives, examples, entry,
+# phase 12: the harness layer (bench, matrix, drives, examples, entry,
 # scaling, the flagship plan)
 # ---------------------------------------------------------------------------
 
@@ -3012,7 +2599,7 @@ def _step(what: str, fn):
     lines = []
     t0 = time.perf_counter()
     result = fn(lines.append)
-    log("13 harness", f"{what}: {time.perf_counter() - t0:.3f} s; "
+    log("12 harness", f"{what}: {time.perf_counter() - t0:.3f} s; "
         f"{lines[-1] if lines else ''}")
     return result, lines
 
@@ -3053,14 +2640,14 @@ def crossover(card: str, methods=("bitonic", "counting", "auto"),
             for label in sizes for name, kind, vkind in CROSSOVER_EXTRA]
         for row in table["results"]:
             got.setdefault(row["workload"], {})[method] = row
-        log("13 crossover", f"--method {method}: "
+        log("12 crossover", f"--method {method}: "
             f"{time.perf_counter() - t0:.3f} s")
     for name, by in got.items():
         ref = next(iter(by.values()))
         cols = "; ".join(
             f"{m} ({r['engine']}) median {r['ours_median_s'] * 1e3:.4f} ms, "
             f"p95 {r['ours_p95_s'] * 1e3:.4f}" for m, r in by.items())
-        log("13 crossover", f"{name}: {cols}; torch.sort median "
+        log("12 crossover", f"{name}: {cols}; torch.sort median "
             f"{ref['torch_median_s'] * 1e3:.4f} ms, p95 "
             f"{ref['torch_p95_s'] * 1e3:.4f}; {ref['reps']} calls a column, "
             f"host clock; card: {card}")
@@ -3078,11 +2665,11 @@ def crossover(card: str, methods=("bitonic", "counting", "auto"),
             if not win:
                 break
             froms[kind] = n
-        log("13 crossover", f"{kind}: counting's median beats the network's "
+        log("12 crossover", f"{kind}: counting's median beats the network's "
             f"at every measured size from n = {froms[kind]}")
     if froms:
         every = (None if None in froms.values() else max(froms.values()))
-        log("13 crossover", f"in every 1-D workload from n = {every}; "
+        log("12 crossover", f"in every 1-D workload from n = {every}; "
             f"sort.AUTO_COUNTING_MIN_N = {sort_mod.AUTO_COUNTING_MIN_N}; "
             f"card: {card}")
     return got
@@ -3108,7 +2695,7 @@ def phase_harness(card: str) -> int:
     be.KERNEL_LAUNCHES = 0
     for n in (1 << 28, (1 << 31) + 100):
         if n > 1 << 28:
-            log("13 harness", f"before the u32Large bench: {host_memory()}")
+            log("12 harness", f"before the u32Large bench: {host_memory()}")
         routes = []
         be.MARK = lambda event, route, words: (
             routes.append(route) if event == "route" else None)
@@ -3124,7 +2711,7 @@ def phase_harness(card: str) -> int:
             raise AssertionError(f"bench n={n}: engine {engine}, routes "
                                  f"{routes[:1]}; not counting, none")
         host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
-        log("13 harness", f"bench n={n} --verify full: "
+        log("12 harness", f"bench n={n} --verify full: "
             f"{time.perf_counter() - t0:.3f} s in all, engine {engine}, routes "
             f"{ {r: routes.count(r) for r in dict.fromkeys(routes)} }, peak "
             f"device memory {line['peak_device_bytes'] / 2**30:.3f} GiB "
@@ -3133,7 +2720,7 @@ def phase_harness(card: str) -> int:
             f"far {host_peak / 2**20:.3f} GiB; card: {card}")
         print(json.dumps(line), flush=True)
         if line["oracle"] != "native":
-            log("13 harness", "the native oracle did not build; numpy's "
+            log("12 harness", "the native oracle did not build; numpy's "
                 "stable sort checked the bench")
         torch.cuda.empty_cache()
 
@@ -3145,7 +2732,7 @@ def phase_harness(card: str) -> int:
     fails, lines = _step("nonpow2_sweep --big", lambda out: nonpow2_sweep.sweep(
         "cuda", big=True, out=out))
     routes = [ln.rsplit("route=", 1)[-1] for ln in lines if "route=" in ln]
-    log("13 harness", f"nonpow2_sweep: {len(routes)} cases, routes "
+    log("12 harness", f"nonpow2_sweep: {len(routes)} cases, routes "
         f"{ {r: routes.count(r) for r in dict.fromkeys(routes)} }")
     if fails:
         raise AssertionError("\n".join(ln for ln in lines
@@ -3165,11 +2752,11 @@ def phase_harness(card: str) -> int:
     rows, _ = _step("scaling --per-chip 16M at world size 1 (one-rank NCCL)",
                     lambda out: scaling.run(1 << 24, plist=[1], dev="cuda",
                                             out=out))
-    log("13 harness", f"scaling {json.dumps(rows)}; card: {card}")
+    log("12 harness", f"scaling {json.dumps(rows)}; card: {card}")
     bad, lines = _step("baseline_scale --P 64,128,256",
                        lambda out: baseline_scale.report(out=out))
     for line in lines[:-1]:
-        log("13 harness", line)
+        log("12 harness", line)
     if bad:
         raise AssertionError("baseline_scale found a problem in the plan")
     sweep_launches = be.KERNEL_LAUNCHES
@@ -3187,7 +2774,7 @@ def phase_harness(card: str) -> int:
         "cuda", "counting", 0, out=out))
     if d.fails:
         raise AssertionError("\n".join(lines))
-    log("13 harness", f"rank_scatter launches: bench "
+    log("12 harness", f"rank_scatter launches: bench "
         f"{bench_launches[0]}, drive "
         f"{counting_engine.KERNEL_LAUNCHES - bench_launches[0]}; "
         f"bucket_scan launches: bench {bench_launches[1]}, drive "
@@ -3282,7 +2869,7 @@ def main() -> int:
     del x
     torch.cuda.empty_cache()
 
-    # phases 11-13 share one one-rank NCCL group
+    # phases 11-12 share one one-rank NCCL group
     _one_rank_group()
     try:
         t0 = time.perf_counter()
@@ -3291,13 +2878,8 @@ def main() -> int:
             f"kernel launches on the psort main path={psort_launches}")
 
         t0 = time.perf_counter()
-        part_launches = phase_partition(card)
-        log("12 partition", f"done in {time.perf_counter() - t0:.3f} s, sweep "
-            f"kernel launches on the partition main path={part_launches}")
-
-        t0 = time.perf_counter()
         harness_launches, rs_harness, scan_harness = phase_harness(card)
-        log("13 harness", f"done in {time.perf_counter() - t0:.3f} s, sweep "
+        log("12 harness", f"done in {time.perf_counter() - t0:.3f} s, sweep "
             f"kernel launches on the harness path={harness_launches}, "
             f"rank_scatter launches on its counting steps={rs_harness}, "
             f"bucket_scan launches={scan_harness}")
@@ -3328,10 +2910,9 @@ def main() -> int:
     sweep = _plan(28, 1, be.EngineTuning())[0]
     print(card, flush=True)
     print(json.dumps({"kernels": [
-        # launches: the bitonic main path (phase 4), psort's (phase 11),
-        # the partition front-end's (phase 12) and the harness's (phase 13)
-        entry("bitonic_sweep",
-              launches + psort_launches + part_launches + harness_launches,
+        # launches: the bitonic main path (phase 4), psort's (phase 11) and
+        # the harness's (phase 12)
+        entry("bitonic_sweep", launches + psort_launches + harness_launches,
               worst, kernel_ms,
               plain_ms,
               bound(2 * 4 * (1 << 28), 2 * len(sweep.substages) * (1 << 27)),
@@ -3346,14 +2927,14 @@ def main() -> int:
         # sums: the counts and run sums read once, the offsets written
         # once, one add a count; its library call, torch.cumsum, scans the
         # counts already in bucket-major order; launches: the counting
-        # paths of phases 8 and 13
+        # paths of phases 8 and 12
         entry("bucket_scan", scan_launches + scan_harness, scan_err,
               sc["ms"], sc["plain_ms"], bound(sc["bytes"], sc["ops"]),
               sc["library_ms"]),
         # the sort_keys pass at 2**28 u32 (the bits alone: no payload, no
         # src; its library call, torch.sort of the uint8 digits, computes
         # src too);
-        # launches: the counting paths of phases 8 and 13
+        # launches: the counting paths of phases 8 and 12
         entry("rank_scatter", rs_launches + rs_harness, rs_err, r["ms"],
               r["plain_ms"], bound(r["bytes"], r["ops"]), r["library_ms"]),
         # at the rate shape (2**18 rounds), where the loads set the time;

@@ -5,7 +5,7 @@ probes):
 against their plain PyTorch versions,
 through the public entry points (the bitonic and the portable engines,
 the engine ``"auto"`` picks on each side of ``sort.AUTO_COUNTING_MIN_N``
-and what it records, a donated sort, the partition front-end, the distributed sort on a one-rank
+and what it records, a donated sort, the distributed sort on a one-rank
 NCCL group with both index widths and donated, ``utils.time_fn``), their
 input checks, and the recorder's launch spans against the kernels' own
 counters. Marked ``cuda``; each test skips where
@@ -979,7 +979,7 @@ def test_psort_pairs_on_a_one_rank_nccl_group(cuda, tmp_path):
 
 
 def test_scaling_on_a_one_rank_nccl_group(cuda, tmp_path):
-    # the weak-scaling harness as phase 13 of chip_smoke.py calls it: the
+    # the weak-scaling harness as phase 12 of chip_smoke.py calls it: the
     # device given as "cuda", timed after an NCCL barrier on the rank's card
     from tinyhipradixsort_torch.benchmarks import scaling
 
@@ -995,31 +995,6 @@ def test_scaling_on_a_one_rank_nccl_group(cuda, tmp_path):
     assert [r["devices"] for r in rows] == [1] and len(lines) == 1
     assert rows[0]["weak_scaling_efficiency"] == 1.0
     assert rows[0]["wire"] == {"ring": 1} and rows[0]["seconds"] > 0
-
-
-def test_partition_route_through_sort_pairs(cuda, monkeypatch):
-    # the MSB-partition front-end at 2**24 u32+u32 pairs (its default
-    # partition_min_n), bit-exact against the direct network and numpy;
-    # "auto" would take counting at this n, so both name the network
-    n = 1 << 24
-    gen = torch.Generator(device=cuda)
-    gen.manual_seed(24)
-    keys = torch.randint(-2**31, 2**31, (n,), generator=gen, device=cuda,
-                         dtype=torch.int64).to(torch.int32).view(torch.uint32)
-    vals = torch.arange(n, dtype=torch.int32, device=cuda)
-    direct = tthrs.sort_pairs(keys, vals, method="bitonic")
-    routes = []
-    monkeypatch.setattr(tbe, "MARK", lambda event, name, words: routes.append(
-        name) if event == "route" else None)
-    monkeypatch.setenv("THRS_PARTITION_BITS", "8")
-    before = tbe.KERNEL_LAUNCHES
-    k, v = tthrs.sort_pairs(keys, vals, method="bitonic")
-    assert "partition" in routes and tbe.KERNEL_LAUNCHES > before, routes
-    assert torch.equal(k, direct[0]) and torch.equal(v, direct[1])
-    x = _bits(keys)
-    p = np.argsort(x, kind="stable")
-    np.testing.assert_array_equal(_bits(k), x[p])
-    np.testing.assert_array_equal(v.cpu().numpy(), p)
 
 
 def test_psort_wide_and_donated_on_a_one_rank_nccl_group(cuda, tmp_path):

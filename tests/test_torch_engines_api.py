@@ -13,9 +13,10 @@ import torch
 import tinyhipradixsort_torch as tthrs
 import tinyhipradixsort_tpu as jthrs
 from tests.test_torch_engines import DTYPES, METHODS, check_port
-from tests.torch_helpers import assert_bits_equal, rand_keys, to_torch
+from tests.torch_helpers import BF16, assert_bits_equal, rand_keys, to_torch
 from tinyhipradixsort_torch import sort as tsort
 from tinyhipradixsort_torch import tracing
+from tinyhipradixsort_torch.ops import bitonic_engine as tbe
 from tinyhipradixsort_torch.ops import counting_engine
 from tinyhipradixsort_torch.ops import histogram as th
 
@@ -77,6 +78,21 @@ def test_rows_parity(method, shape):
 
 
 @pytest.mark.parametrize("method", METHODS)
+def test_rows_carry_16bit_float_values_bit_exactly(method):
+    # signalling NaNs keep their quiet bit clear through a row gather; the
+    # oracle is numpy (the JAX counting engine quiets bf16 NaNs)
+    rng = np.random.default_rng(RNG_SEED + 6)
+    x = rand_keys(rng, np.uint32, 4 * 300).reshape(4, 300)
+    raw = rng.integers(0, 2**16, size=(4, 300), dtype=np.uint16)
+    raw[:, :3] = [0x7C01, 0xFD56, 0x7F80]  # f16 and bf16 signalling NaNs
+    want = np.take_along_axis(raw, np.argsort(x, axis=1, kind="stable"), 1)
+    for dt in (np.dtype(np.float16), BF16):
+        _, v = tthrs.sort_pairs(to_torch(x), to_torch(raw.view(dt)),
+                                method=method)
+        assert_bits_equal(v, want, f"{method} {dt.name}")
+
+
+@pytest.mark.parametrize("method", METHODS)
 def test_segment_ids_parity(method):
     rng = np.random.default_rng(RNG_SEED + 2)
     n = 2049
@@ -92,6 +108,69 @@ def test_segment_ids_parity(method):
         for order in ("ascending", "descending"):
             check_port(x, vals, method, f"{method} {np.dtype(dtype).name} "
                        f"{seg.dtype} {order}", order=order, segment_ids=seg)
+
+
+@pytest.mark.parametrize("segmented", [False, True],
+                         ids=["flat", "segment_ids"])
+@pytest.mark.parametrize("order", ["ascending", "descending"])
+@pytest.mark.parametrize("dtype", [np.float16, BF16],
+                         ids=lambda d: np.dtype(d).name)
+def test_counting_rebuilds_16bit_float_keys_from_the_bits(dtype, order,
+                                                          segmented,
+                                                          monkeypatch):
+    # 16-bit float keys take the from-bits path of f32 and f64 keys: the
+    # engine hands back the sorted bits, and one 1-byte -0.0 flag rides
+    # beside the value leaves
+    seen = []
+    real = tsort._PORTABLE["counting"]
+
+    def spy(bits, arrays, start_bit, end_bit, **kw):
+        seen.append([a.dtype for a in arrays])
+        return real(bits, arrays, start_bit, end_bit, **kw)
+
+    monkeypatch.setitem(tsort._PORTABLE, "counting", spy)
+    rng = np.random.default_rng([len(order), int(segmented), dtype == BF16])
+    n = 3000
+    x = rand_keys(rng, dtype, n)
+    x[::9] = x[1]  # ties: stability decides
+    # -0.0, +0.0 and NaNs of either sign with a payload
+    x[:4] = np.array([0x8000, 0, 0x7FC1, 0xFFC3], np.uint16).view(x.dtype)
+    vals = rng.integers(0, 2**32, size=n, dtype=np.uint32)
+    kw = dict(order=order)
+    if segmented:
+        kw["segment_ids"] = np.sort(rng.integers(0, 7, size=n)).astype(
+            np.int32)
+    check_port(x, vals, "counting", f"{np.dtype(dtype).name} {order}", **kw)
+    i32 = torch.int32
+    # sort_keys, sort_pairs, sort_indices (no keys: no flag, the index)
+    flat = [[torch.bool], [torch.bool, to_torch(vals).dtype], [i32]]
+    if segmented:
+        # the key pass carries the segment bits in front; the segment pass
+        # carries the key pass's sorted bits last
+        want = [[i32] + flat[0], flat[0] + [i32], [i32] + flat[1],
+                flat[1] + [i32], [i32] + flat[2], flat[2]]
+    else:
+        want = flat
+    assert seen == want
+
+
+@pytest.mark.parametrize("method", ["counting", "argsort"])
+def test_portable_calls_read_no_network_tuning(method, monkeypatch):
+    # only the network reads the THRS_* knobs, at its own entry
+    def refuse():
+        raise AssertionError("a portable sort read the network's tuning")
+
+    monkeypatch.setattr(tbe.EngineTuning, "from_env", staticmethod(refuse))
+    rng = np.random.default_rng(RNG_SEED + 4)
+    x = rand_keys(rng, np.uint32, 3000)
+    vals = rng.integers(0, 2**32, size=3000, dtype=np.uint32)
+    perm = np.argsort(x, kind="stable")
+    assert_bits_equal(tthrs.sort_keys(to_torch(x), method=method), x[perm])
+    k, v = tthrs.sort_pairs(to_torch(x), to_torch(vals), method=method)
+    assert_bits_equal(k, x[perm])
+    assert_bits_equal(v, vals[perm])
+    with pytest.raises(AssertionError, match="tuning"):
+        tthrs.sort_keys(to_torch(x), method="bitonic")
 
 
 @pytest.mark.parametrize("method", METHODS)

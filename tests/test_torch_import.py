@@ -15,7 +15,6 @@ import tinyhipradixsort_torch
 import tinyhipradixsort_torch.sort, tinyhipradixsort_torch.config
 from tinyhipradixsort_torch.ops import bitonic_engine, cuda_lib, network_engine
 from tinyhipradixsort_torch.ops import argsort_engine, counting_engine, histogram
-from tinyhipradixsort_torch.ops import partition_engine
 from tinyhipradixsort_torch.tools import gather_floor, partition_dma_floor
 from tinyhipradixsort_torch.parallel import dryrun, multihost, psort
 from tinyhipradixsort_torch.utils import native_oracle, prng, profiling

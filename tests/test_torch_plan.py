@@ -97,29 +97,18 @@ def test_tuning_from_env_reads_every_field(monkeypatch):
     monkeypatch.setenv("THRS_SEG_PAD_WASTE", "0.5")
     monkeypatch.setenv("THRS_ROW_SEG_WASTE", "0.3")
     monkeypatch.setenv("THRS_ROW_SEG_MIN_NR", "64")
-    monkeypatch.setenv("THRS_PARTITION_BITS", "8")
-    monkeypatch.setenv("THRS_PARTITION_MIN_N", "4096")
-    monkeypatch.setenv("THRS_PARTITION_ROW_BITS", "12")
-    monkeypatch.setenv("THRS_PARTITION_TILE_BITS", "16")
     got = tbe.EngineTuning.from_env()
     assert got == tbe.EngineTuning(smem_tile_bytes=65536, cross_g_max=5,
                                    seg_pad_waste=0.5, row_seg_waste=0.3,
-                                   row_seg_min_nr=64, partition_bits=8,
-                                   partition_min_n=4096,
-                                   partition_row_bits=12,
-                                   partition_tile_bits=16)
-    routing = ("seg_pad_waste", "row_seg_waste", "row_seg_min_nr",
-               "partition_bits", "partition_min_n", "partition_row_bits",
-               "partition_tile_bits")
+                                   row_seg_min_nr=64)
+    routing = ("seg_pad_waste", "row_seg_waste", "row_seg_min_nr")
     assert {f.name for f in dataclasses.fields(got)} == {
         "smem_tile_bytes", "cross_g_max", *routing}
     assert tbe._tile_bits_for(1, 30, got) == 14
-    # the routing knobs keep the JAX package's names and defaults (the
-    # partition front-end off)
+    # the routing knobs keep the JAX package's names and defaults
     jt, tt = jbe.EngineTuning(), tbe.EngineTuning()
     assert [getattr(tt, k) for k in routing] == [getattr(jt, k)
                                                  for k in routing]
-    assert tt.partition_bits == 0
 
 
 def test_common_helpers_match_jax():

@@ -19,6 +19,7 @@ import tinyhipradixsort_tpu as jthrs
 from tests import oracles
 from tests.torch_helpers import (BF16, assert_bits_equal, rand_keys,
                                  to_torch, ubits)
+from tinyhipradixsort_torch import tracing
 from tinyhipradixsort_torch.ops import bitonic_engine as tbe
 from tinyhipradixsort_tpu.ops import bitonic_engine as jbe
 
@@ -144,6 +145,88 @@ def test_default_routing_pads_near_a_power_of_two(monkeypatch):
         (got,), _ = tbe.sort_words(_words(x), [], tuning=tbe.EngineTuning())
         assert_bits_equal(got, np.sort(x))
     assert calls == [5000]
+
+
+def test_seg_pad_waste_env_moves_an_api_sort_to_the_padded_route(
+        monkeypatch):
+    # the network reads THRS_* at its own entry: 5000 of 8192 takes the
+    # segmented route by default and the padded one under a waste of 1.0
+    routes = []
+    monkeypatch.setattr(tbe, "MARK", lambda event, name, words: routes.append(
+        name) if event == "route" else None)
+    x = np.random.default_rng(RNG_SEED + 5).integers(0, 2**32, 5000,
+                                                     dtype=np.uint32)
+    assert_bits_equal(tthrs.sort_keys(to_torch(x), method="bitonic"),
+                      np.sort(x))
+    assert routes[0] == "segmented", routes
+    routes.clear()
+    monkeypatch.setenv("THRS_SEG_PAD_WASTE", "1.0")
+    assert_bits_equal(tthrs.sort_keys(to_torch(x), method="bitonic"),
+                      np.sort(x))
+    assert routes == ["padded"]
+
+
+def _case_words(case, rng):
+    """numpy u32 ``(cmp, carry)`` words of one ``sort_words`` case."""
+    if case.startswith("uniform-"):
+        n = int(case.split("-")[1])
+        return [rng.integers(0, 2**32, n, dtype=np.uint32)], []
+    n = 5000
+    idx = np.arange(n, dtype=np.uint32)
+    pay = rng.integers(0, 2**32, n, dtype=np.uint32)
+    if case == "stable-pairs":
+        hi = rng.integers(0, 2**32, n, dtype=np.uint32)
+        lo = rng.integers(0, 4, n, dtype=np.uint32)
+        return [hi, lo, idx], [pay]
+    if case == "zipf-head":
+        z = np.minimum(rng.zipf(1.3, n), 2**32 - 1).astype(np.uint32)
+        return [z, idx], [pay]
+    if case == "all-equal":
+        return [np.full(n, 0xDEADBEEF, np.uint32), idx], []
+    # runs of one top nibble whose lengths straddle rows of 1024
+    sizes = [700, 900, 1024, 1000, 1024, 300]
+    top = np.concatenate([np.full(k, d, np.uint32)
+                          for d, k in enumerate(sizes)])
+    low = rng.integers(0, 2**28, top.shape[0], dtype=np.uint32)
+    return [rng.permutation((top << np.uint32(28)) | low)], []
+
+
+@pytest.mark.parametrize("case", [
+    "uniform-700", "uniform-4096", "uniform-6000", "uniform-10000",
+    "stable-pairs", "zipf-head", "all-equal", "bucket-straddling"])
+def test_sort_words_matches_jax(case):
+    # the default routes (padded or segmented) on uniform, multi-word,
+    # skewed, tied and clustered words, against the JAX package's engine
+    cmp_np, carry_np = _case_words(case, np.random.default_rng(
+        [RNG_SEED, len(case)]))
+    jc, jk = jbe.sort_words([jnp.asarray(w) for w in cmp_np],
+                            [jnp.asarray(w) for w in carry_np],
+                            interpret=True)
+    tc, tk = tbe.sort_words(_words(*cmp_np), _words(*carry_np))
+    assert len(tc) == len(jc) and len(tk) == len(jk)
+    for g, w in zip(tc + tk, list(jc) + list(jk)):
+        assert_bits_equal(g, np.asarray(w))
+    order = np.lexsort(tuple(reversed(cmp_np)))
+    assert_bits_equal(tc[0], cmp_np[0][order])
+
+
+def test_partition_knobs_are_not_read(monkeypatch):
+    # the front-end's old THRS_PARTITION_* variables route nothing: an API
+    # sort takes the network's own route and gives the same output
+    x = np.random.default_rng(RNG_SEED + 8).integers(0, 2**32, 4000,
+                                                     dtype=np.uint32)
+    want = tthrs.sort_pairs(to_torch(x), torch.arange(4000), method="bitonic")
+    for knob, value in (("BITS", "8"), ("MIN_N", "0"), ("TILE_BITS", "8"),
+                        ("ROW_BITS", "10")):
+        monkeypatch.setenv(f"THRS_PARTITION_{knob}", value)
+    with tracing.record() as rec:
+        got = tthrs.sort_pairs(to_torch(x), torch.arange(4000),
+                               method="bitonic")
+    routes = [i.attrs["route"] for i in rec.instants
+              if i.name == "bitonic.route"]
+    assert routes == ["padded"], routes
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("dtype", [np.uint16, np.float32, np.uint64],

@@ -60,9 +60,6 @@ Routes (all of them end in the same sweep kernel)
   ``b_pad * 2**r`` (a batch padded to a tile multiple, :func:`_row_plan`);
   :func:`_sort_segmented_rows` for non-power-of-two rows of a batch large
   enough to repay its small launches (:data:`_ROW_SEG_MIN_PADDED`).
-* :func:`sort_words` with ``EngineTuning.partition_bits > 0`` (off by
-  default): the MSB-partition front-end of :mod:`.partition_engine`, whose
-  rank sort, bucket rows and merges are row networks of this module.
 
 The sweeps run in place, so every buffer a sweep sees is one the engine
 allocated: a caller's tensors (a 32-bit payload's words are views of it)
@@ -73,8 +70,8 @@ sweeps them where they lie.
 Each call records into :mod:`..tracing` while a recording is on: the
 spans ``bitonic.sort_words`` and ``bitonic.sort_words_rows``, the route
 each takes and the route of each merge of two sorted runs as the instant
-``bitonic.route``, each part of a segmented sort or of the partition
-front-end as a span ``bitonic.<part>``, and each kernel launch as a span
+``bitonic.route``, each part of a segmented sort as a span
+``bitonic.<part>``, and each kernel launch as a span
 ``launch.bitonic_sweep``; a tool times the parts by CUDA events at their
 edges through ``tracing.observe``. :data:`MARK`, an older observer that
 tests and the benchmark's route line read, sees the same routes and
@@ -246,13 +243,6 @@ class EngineTuning:
     sorts (``>= 1.0`` always pads rows); rows of at most
     ``max(row_seg_min_nr, 32)`` elements always pad, and so do batches
     below :data:`_ROW_SEG_MIN_PADDED` padded elements.
-
-    partition_bits, partition_min_n, partition_row_bits,
-    partition_tile_bits: the MSB-partition front-end
-    (:mod:`.partition_engine`). ``partition_bits=0`` turns it off, as in
-    the JAX package; ``> 0`` routes stable :func:`sort_words` calls of
-    ``partition_min_n <= n < 2**31`` through it. Row and tile bits 0 pick
-    ``L - partition_bits + 1`` and 18.
     """
 
     smem_tile_bytes: int = 200 * 1024
@@ -260,10 +250,6 @@ class EngineTuning:
     seg_pad_waste: float = 0.15
     row_seg_waste: float = 0.24
     row_seg_min_nr: int = 1024
-    partition_bits: int = 0
-    partition_min_n: int = 1 << 24
-    partition_row_bits: int = 0
-    partition_tile_bits: int = 0
 
     @classmethod
     def from_env(cls) -> "EngineTuning":
@@ -529,13 +515,11 @@ _ROW_SEG_MIN_PADDED = 1 << 26
 
 #: observer of routes and parts (``None``: off). Called as
 #: ``MARK(event, name, words)``: ``event="route"`` once per routing decision
-#: (``name`` one of "padded", "segmented", "rows", "rows-segmented",
-#: "partition", "partition-fallback", and for a merge of two sorted runs
-#: "merge-virtual" or "merge-padded"; the words it sorts or merges), and
-#: ``"begin"``/``"end"`` around each part of a segmented sort ("prefix
-#: network", "recursive remainder", "dense levels", "merge sweeps") or of
-#: the partition front-end ("rank sort", "counts", "scatter", "bucket
-#: sorts", "merges", "fallback"); parts nest, the outermost is the part.
+#: (``name`` one of "padded", "segmented", "rows", "rows-segmented", and
+#: for a merge of two sorted runs "merge-virtual" or "merge-padded"; the
+#: words it sorts or merges), and ``"begin"``/``"end"`` around each part of
+#: a segmented sort ("prefix network", "recursive remainder", "dense
+#: levels", "merge sweeps"); parts nest, the outermost is the part.
 #: The same calls also record into :mod:`..tracing`: a route as the
 #: instant ``bitonic.route`` (attribute ``route``), a part as the span
 #: ``bitonic.<part>``.
@@ -602,12 +586,8 @@ def sort_words(cmp_words: list, carry_words: list, *,
     ``>= 2**MIN_L``): an all-ones real tuple would tie the pad sentinels
     and could be truncated in their place, so other sizes raise.
 
-    Routes: with ``tuning.partition_bits > 0``, a stable sort of
-    ``partition_min_n <= n < 2**31`` goes through the MSB-partition
-    front-end (:func:`.partition_engine.sort_words_partition`, which never
-    sweeps the given words). A non-power-of-two ``n`` whose padding to
-    ``2**L`` would waste more than ``tuning.seg_pad_waste`` takes the
-    segmented route
+    Routes: a non-power-of-two ``n`` whose padding to ``2**L`` would waste
+    more than ``tuning.seg_pad_waste`` takes the segmented route
     (:func:`_sort_segmented`); every other ``n`` is copied into fresh
     buffers of ``2**max(ceil_log2 n, MIN_L)`` (all-ones in cmp words, zeros
     in carry words), the whole network runs in place on them, and the
@@ -626,12 +606,6 @@ def sort_words(cmp_words: list, carry_words: list, *,
     ncmp = len(cmp_words)
     words = list(cmp_words) + list(carry_words)
     with tracing.span("bitonic.sort_words", n=n, words=len(words)):
-        if (not tie_safe and tuning.partition_bits > 0
-                and tuning.partition_min_n <= n < 1 << 31):
-            from . import partition_engine
-
-            return partition_engine.sort_words_partition(
-                list(cmp_words), list(carry_words), tuning=tuning)
         if in_place:
             words = [w.contiguous() for w in words]
         words = _sort_flat(words, ncmp, tuning, 0, owned=in_place)

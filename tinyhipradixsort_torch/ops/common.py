@@ -71,9 +71,10 @@ def take(a: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """``a`` permuted along its element axis by ``src``: axis 0 for a 1-D
     ``src``, axis 1 of each row for a 2-D ``(B, n)`` ``src``. Bits are
     copied as they are; unsigned tensors (which torch cannot index on every
-    device) move through their signed view."""
+    device) and floats (``take_along_dim`` sets a 16-bit signalling NaN's
+    quiet bit on the CPU) move through their signed view."""
     dtype = a.dtype
-    if dtype in _UNSIGNED:
+    if dtype in _UNSIGNED or dtype.is_floating_point:
         a = a.view(_SIGNED[dtype.itemsize])
     if src.ndim == 1:
         out = a.index_select(0, src)

@@ -64,7 +64,6 @@ import torch
 from . import keybits, tracing
 from .config import Config, SortOrder
 from .ops import argsort_engine, common, counting_engine, network_engine
-from .ops.bitonic_engine import EngineTuning
 
 __all__ = ["sort_keys", "sort_pairs", "sort_indices", "RadixSort",
            "segment_ids_from_offsets"]
@@ -197,18 +196,14 @@ def _sort_portable(keys, leaves, *, method, descending, start_bit, end_bit,
     the order of ``want``, values as a flat list of leaves."""
     engine = _PORTABLE[method]
     bits = keybits.key_bits(keys, descending=descending)
-    # 16-bit float keys ride as their bits plus a -0.0 flag and are rebuilt
-    # in the integer domain after the sort, as in the JAX package
-    f16_keys = "keys" in want and keys.dtype in (torch.float16, torch.bfloat16)
-    # an engine of _FROM_BITS hands back its sorted bits and the other keys
-    # are rebuilt from them, so a pass moves each key's bytes once; float
-    # keys carry a 1-byte -0.0 flag, since the bits normalise -0.0 to +0.0
-    from_bits = "keys" in want and method in _FROM_BITS and not f16_keys
+    # an engine of _FROM_BITS hands back its sorted bits and the keys are
+    # rebuilt from them, so a pass moves each key's bytes once; float keys
+    # carry a 1-byte -0.0 flag, since the bits normalise -0.0 to +0.0; the
+    # other engines carry the keys themselves
+    from_bits = "keys" in want and method in _FROM_BITS
     float_flag = from_bits and keys.dtype.is_floating_point
     arrays = []
-    if f16_keys:
-        arrays += [bits, keybits.neg_zero_flag(keys)]
-    elif float_flag:
+    if float_flag:
         arrays.append(keybits.neg_zero_flag(keys, torch.bool))
     elif "keys" in want and not from_bits:
         arrays.append(keys)
@@ -231,13 +226,7 @@ def _sort_portable(keys, leaves, *, method, descending, start_bit, end_bit,
 
     result = []
     pos = 0
-    if f16_keys:
-        raw = keybits.key_bits_inverse_raw(out[0], keys.dtype,
-                                           descending=descending)
-        raw = torch.where(out[1] == 1, raw | 0x8000, raw)
-        result.append(keybits.raw_to_keys(raw, keys.dtype))
-        pos = 2
-    elif from_bits:
+    if from_bits:
         raw = keybits.key_bits_inverse_raw(out.pop(), keys.dtype,
                                            descending=descending)
         if float_flag:
@@ -257,8 +246,7 @@ def _sort_portable(keys, leaves, *, method, descending, start_bit, end_bit,
 
 
 def _sort_entry(keys, values, *, method, descending, start_bit, end_bit,
-                want, zeros_exact=True, seg=None, tuning=None, stable=True,
-                donate=False):
+                want, zeros_exact=True, seg=None, stable=True, donate=False):
     """want: subset of ('keys', 'values', 'indices') controlling outputs.
     ``donate``: write the keys and values into the caller's tensors (see
     the module docstring)."""
@@ -282,7 +270,7 @@ def _sort_entry(keys, values, *, method, descending, start_bit, end_bit,
         out = list(network_engine.sort_semantics(
             keys, leaves, descending=descending, start_bit=start_bit,
             end_bit=end_bit, want=want, zeros_exact=zeros_exact,
-            seg_bits=seg_bits, tuning=tuning, stable=stable, in_place=donate))
+            seg_bits=seg_bits, stable=stable, in_place=donate))
     else:
         out = _sort_portable(keys, leaves, method=method,
                              descending=descending, start_bit=start_bit,
@@ -319,7 +307,6 @@ def _prep(keys, order, start_bit, end_bit, method, segment_ids,
     if donate:
         _check_donated(keys, "keys")
     keys = _as_input(keys, "keys")
-    tuning = EngineTuning.from_env()
     engine = _resolve_method(method, keys, segmented=segment_ids is not None,
                              donate=donate)
     if method == "auto" and tracing.on():
@@ -335,7 +322,7 @@ def _prep(keys, order, start_bit, end_bit, method, segment_ids,
     seg = _prep_segments(segment_ids, keys)
     return keys, dict(method=engine, descending=descending,
                       start_bit=start_bit, end_bit=end_bit, seg=seg,
-                      donate=donate, tuning=tuning)
+                      donate=donate)
 
 
 def sort_keys(keys, *, order="ascending", start_bit=0, end_bit=None,
