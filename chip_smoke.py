@@ -2299,7 +2299,8 @@ def phase_psort_main(card: str) -> int:
 
 def phase_psort_local(card: str) -> None:
     """Rank 0's local work in an 8-rank group with B = 2**28 per rank, at
-    psort's own capacities: the local sort of B (key, index) tuples, then
+    psort's own capacities: the local sort of B (key, index) tuples on the
+    network, then on counting (the zipf keys, then uniform ones), then
     :func:`local_merges` on those 2-word tuples and on the key word alone
     (the keys-only path ships no index). Each is timed (median of 5, CUDA
     events) and held bit-equal to the stable torch.sort lexsort of the same
@@ -2333,9 +2334,24 @@ def phase_psort_local(card: str) -> None:
             raise AssertionError(f"psort local work wrong: {label}")
         return out
 
+    want = _lexsorted(words)
     srt = measure("local sort of B", lambda: be.sort_words(words, [])[0],
-                  _lexsorted(words))
-    del keys, words
+                  want)
+    # the engine "auto" takes from AUTO_COUNTING_MIN_N: the key word
+    # sorted alone, the ascending index carried; on the zipf keys, then
+    # on uniform keys of the same shape (rank_scatter under skew)
+    measure("local sort of B on counting, zipf keys",
+            lambda: psort._local_sort_words(words, [], "counting",
+                                            sort_bits=[32, 0])[0], want)
+    del want
+    uniform = [torch.randint(-2**31, 2**31, (B,), generator=gen,
+                             device="cuda", dtype=torch.int64)
+               .to(torch.int32), words[1]]
+    measure("local sort of B on counting, uniform keys",
+            lambda: psort._local_sort_words(uniform, [], "counting",
+                                            sort_bits=[32, 0])[0],
+            _lexsorted(uniform))
+    del keys, words, uniform
     # the ring's merges and the rebalance merge on the (key, index) tuples
     # of a sort that ships the index, then on the key word alone, as the
     # keys-only path ships it
@@ -2441,10 +2457,15 @@ PSORT_STEPS = ("psort.relay_in", "psort.pre_exchange", "psort.local_sort",
 def psort_step_times(fn) -> dict:
     """One call of ``fn`` inside ``tracing.record()``: the device time (ms)
     between CUDA events at the begin and end of each psort span, summed by
-    name (the root's under ``"call"``), the bytes psort.wire_bytes counted
-    inside the ring's rounds (``"ring_bytes"``), and the call's counters."""
-    open_, ms = [], {}
+    name (the root's under ``"call"``), the most device memory each held
+    above what was allocated when the call began (``"peak"``, bytes: the
+    allocator's peak read and reset at every psort span's edge, so a
+    nested span's peak counts for its parent too), the bytes
+    psort.wire_bytes counted inside the ring's rounds (``"ring_bytes"``),
+    and the call's counters."""
+    open_, ms, peak = [], {}, {}
     ring = [0]
+    base = []
 
     def wire() -> int:
         return sum(v for (_, k), v in rec.counts.items()
@@ -2455,6 +2476,13 @@ def psort_step_times(fn) -> dict:
             return
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
+        if not base:
+            base.append(torch.cuda.memory_allocated())
+        top = torch.cuda.max_memory_allocated() - base[0]
+        torch.cuda.reset_peak_memory_stats()
+        for began, _, _ in open_:
+            key = "call" if began.startswith("psort_") else began
+            peak[key] = max(peak.get(key, 0), top)
         if event == "begin":
             open_.append((name, ev, wire()))
             return
@@ -2464,6 +2492,8 @@ def psort_step_times(fn) -> dict:
         if name == "psort.ring":
             ring[0] += wire() - sent
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with tracing.record() as rec, tracing.observe(watch):
         fn()
     torch.cuda.synchronize()
@@ -2473,7 +2503,8 @@ def psort_step_times(fn) -> dict:
     counts = {}
     for (_, k), v in rec.counts.items():
         counts[k] = counts.get(k, 0) + v
-    return {"ms": out, "ring_bytes": ring[0], "counts": counts}
+    return {"ms": out, "peak": peak, "ring_bytes": ring[0],
+            "counts": counts}
 
 
 def _psort_rank(rank: int, world: int, port: int, n: int, reps: int,
@@ -2502,14 +2533,16 @@ def _psort_rank(rank: int, world: int, port: int, n: int, reps: int,
         report["mismatches"] = int((got.view(torch.int32) != want).sum())
         del got, want
         torch.cuda.synchronize()
+        report["peak_bytes"] = torch.cuda.max_memory_allocated()
         calls = [psort_step_times(lambda: thrs.psort_keys(x))
                  for _ in range(reps)]
         report["ms"] = {k: statistics.median(c["ms"].get(k, 0.0)
                                              for c in calls)
                         for k in calls[0]["ms"]}
+        report["step_peak"] = {k: max(c["peak"].get(k, 0) for c in calls)
+                               for k in calls[0]["peak"]}
         report["ring_bytes"] = calls[0]["ring_bytes"]
         report["counts"] = calls[0]["counts"]
-        report["peak_bytes"] = torch.cuda.max_memory_allocated()
         dist.destroy_process_group()
     except Exception:  # the parent reports it and raises
         report["error"] = traceback.format_exc()
@@ -2555,15 +2588,23 @@ def phase_psort_group(card: str, n: int = PSORT_N, reps: int = 5) -> None:
             raise AssertionError(f"psort group, rank {rank}: {rep}")
         steps = ", ".join(f"{k.removeprefix('psort.')} {rep['ms'][k]:.3f}"
                           for k in PSORT_STEPS if k in rep["ms"])
+        peaks = ", ".join(
+            f"{k.removeprefix('psort.')} {rep['step_peak'][k] / n:.4f}"
+            for k in ("call",) + PSORT_STEPS if k in rep["step_peak"])
+        engines = {k: v for k, v in rep["counts"].items()
+                   if k.startswith("psort.local.")}
         log("11 psort", f"group of {world}, rank {rank}: call "
             f"{rep['ms']['call']:.3f} ms; by step (ms, median of {reps}, "
             f"CUDA events at the spans' edges; merge: the run tree's "
             f"merges, inside ring's rounds or after them): {steps}; "
             f"the ring carried {rep['ring_bytes']} B, "
             f"psort.wire_bytes {rep['counts'].get('psort.wire_bytes', 0)}, "
-            f"psort.host_reads {rep['counts'].get('psort.host_reads')}; "
-            f"peak memory {rep['peak_bytes'] / 2**30:.3f} GiB; bit-equal to "
-            f"its slice of the sorted keys of every rank")
+            f"psort.host_reads {rep['counts'].get('psort.host_reads')}, "
+            f"local sort engine {engines or 'not counted'}; the most "
+            f"memory each step held above the call's start, B/key (the "
+            f"max of {reps}): {peaks}; peak memory of the check "
+            f"{rep['peak_bytes'] / 2**30:.3f} GiB; bit-equal to its slice "
+            f"of the sorted keys of every rank")
 
 
 def phase_psort(card: str) -> int:

@@ -6,7 +6,8 @@ against their plain PyTorch versions,
 through the public entry points (the bitonic and the portable engines,
 the engine ``"auto"`` picks on each side of ``sort.AUTO_COUNTING_MIN_N``
 and what it records, a donated sort, the distributed sort on a one-rank
-NCCL group with both index widths and donated, ``utils.time_fn``), their
+NCCL group with both index widths, donated, and its local sort's engine
+on each side of that size, ``utils.time_fn``), their
 input checks, and the recorder's launch spans against the kernels' own
 counters. Marked ``cuda``; each test skips where
 ``torch.cuda.is_available()`` is false.
@@ -976,6 +977,35 @@ def test_psort_pairs_on_a_one_rank_nccl_group(cuda, tmp_path):
     np.testing.assert_array_equal(_bits(k), x[p])
     np.testing.assert_array_equal(_bits(vv), v[p])
     np.testing.assert_array_equal(perm.cpu().numpy(), p)
+
+
+def test_psort_auto_sorts_locally_on_counting_from_its_min_n(cuda, tmp_path):
+    # at AUTO_COUNTING_MIN_N keys a rank "auto" sorts the local words on
+    # counting, bit-equal to sort_keys on counting, and counts it once a
+    # call; at 2**20, and under method="bitonic", the network
+    n = tsort.AUTO_COUNTING_MIN_N
+    x = np.minimum(np.random.default_rng(24).zipf(1.3, size=n), 2**31)
+    keys = torch.from_numpy(x.astype(np.uint32)).to(cuda)
+    multihost.initialize(backend="nccl",
+                         init_method=f"file://{tmp_path / 'store'}",
+                         world_size=1, rank=0)
+    try:
+        with tracing.record() as rec:
+            got = tthrs.psort_keys(keys)
+            small = tthrs.psort_keys(keys[:1 << 20])
+            net = tthrs.psort_keys(keys, method="bitonic")
+    finally:
+        dist.destroy_process_group()
+    for out, ks in ((got, keys), (small, keys[:1 << 20]), (net, keys)):
+        want = tthrs.sort_keys(ks, method="counting")
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    assert {k: v for k, v in rec.counts.items()
+            if k[1].startswith("psort.local.")} == {
+        (1, "psort.local.counting"): 1, (2, "psort.local.network"): 1,
+        (3, "psort.local.network"): 1}
+    assert [s.attrs["engine"] for s in rec.spans
+            if s.name == "psort.local_sort"] == ["counting", "bitonic",
+                                                 "bitonic"]
 
 
 def test_scaling_on_a_one_rank_nccl_group(cuda, tmp_path):

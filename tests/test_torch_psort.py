@@ -5,8 +5,8 @@ the JAX package's psort on a mesh of as many of conftest's 8 CPU devices.
 Every rank passes its piece of the same global input; the concatenation of
 the ranks' outputs must be bit-identical to the JAX output on the
 concatenated input (the unique globally stable order, whatever local
-engine either side runs: the port's cases name ``"bitonic"``, its plain
-twin here, or the default lexsort), and with
+engine either side runs: the port's cases name ``"bitonic"`` or
+``"counting"``, their plain twins here, or the default lexsort), and with
 ``check=True`` every rank's overflow flag must equal the JAX flag. The cases
 mirror ``tests/test_distributed.py`` (the two-word index, the keys-only
 path that synthesizes the index, real keys equal to the pad fill), plus
@@ -172,6 +172,52 @@ def _build_cases():
         kwargs={"order": "descending", "method": "bitonic"})
     add(8, "dryrun", "dryrun", np.zeros(8, dtype=np.uint32),
         kwargs={"n": 1 << 16})
+    # the local sort on counting (its CPU twin), the merges on the
+    # network's: the key words sorted alone, the index carried, real keys
+    # equal to the pad fill kept before the entry pads
+    cnt = {"method": "counting"}
+    add(8, "counting-keys", "keys", rand(np.uint32, 100001),
+        kwargs={**cnt, "check": True})
+    add(8, "counting-pairs-zipf", "pairs", skews["zipf"], kwargs=cnt,
+        values=np.arange(50000, dtype=np.uint32))
+    add(8, "counting-pairs-dict-payload", "pairs",
+        rng.integers(0, 64, size=30000).astype(np.uint32), kwargs=cnt,
+        values={"a": rand(np.uint32, 30000), "b": rand(np.uint64, 30000),
+                "c": rand(np.int32, 30000), "d": rand(np.uint64, 30000)})
+    add(8, "counting-indices", "indices",
+        rng.integers(0, 100, size=12345, dtype=np.uint32), kwargs=cnt)
+    x = rand(np.uint32, 100001)
+    x[rng.random(100001) < 0.05] = 0xFFFFFFFF
+    add(8, "counting-sentinel-keys", "keys", x,
+        kwargs={**cnt, "check": True})
+    add(8, "counting-sentinel-keys-wide", "keys", x,
+        kwargs={**cnt, "_force_wide": True})
+    add(8, "counting-sentinel-indices", "indices", x, kwargs=cnt)
+    x = x.copy()
+    x[rng.random(100001) < 0.05] = 0
+    add(8, "counting-sentinel-keys-descending", "keys", x,
+        kwargs={**cnt, "order": "descending"})
+    x = rng.integers(0, 256, size=30000).astype(np.uint32)
+    add(8, "counting-wide-pairs", "pairs", x,
+        kwargs={**cnt, "_force_wide": True},
+        values=np.arange(30000, dtype=np.uint32))
+    add(8, "counting-wide-indices", "indices", x,
+        kwargs={**cnt, "_force_wide": True})
+    add(8, "counting-keys-u64", "keys", rand(np.uint64, 30001),
+        kwargs={**cnt, "check": True})
+    add(8, "counting-keys-u64-descending", "keys", rand(np.uint64, 30001),
+        kwargs={**cnt, "order": "descending"})
+    add(8, "counting-keys-f32-signed-zeros", "keys",
+        np.where(rng.random(9999) < 0.2, -0.0,
+                 rng.standard_normal(9999)).astype(np.float32), kwargs=cnt)
+    # bit windows: the counting passes cover the window's bits alone, with
+    # the pads' all-ones above them (20001 keys: entry pads)
+    wkeys = rand(np.uint64, 20001)
+    wkeys[rng.random(20001) < 0.05] = 2**64 - 1
+    for start, end in ((24, 32), (3, 17), (5, 50)):
+        add(8, f"counting-pairs-window-{start}-{end}", "pairs", wkeys,
+            kwargs={**cnt, "start_bit": start, "end_bit": end},
+            values=np.arange(20001, dtype=np.uint32))
 
     # uneven pieces, empty ones included
     x = rand(np.uint32, 1042)
@@ -183,6 +229,11 @@ def _build_cases():
         kwargs={"order": "descending"})
     add(4, "uneven-bitonic", "keys", x, lengths=[300, 0, 0, 742],
         kwargs={"method": "bitonic"})
+    add(4, "uneven-counting-keys", "keys", x, lengths=uneven,
+        kwargs={"method": "counting"})
+    add(4, "uneven-counting-pairs-descending", "pairs", x % 100,
+        lengths=[600, 0, 442, 0], values=rand(np.uint64, 1042),
+        kwargs={"method": "counting", "order": "descending"})
     for fn in ("keys", "pairs", "indices"):
         add(4, f"uneven-donate-{fn}", fn, x % 1000, lengths=uneven,
             kwargs={"donate": True},
@@ -200,6 +251,8 @@ def _build_cases():
     add(1, "pairs-bitonic", "pairs", rand(np.uint32, 1001) % 50,
         kwargs={"method": "bitonic"}, values=rand(np.uint64, 1001))
     add(1, "indices", "indices", rand(np.int32, 1001), kwargs={"check": True})
+    add(1, "counting-pairs", "pairs", rand(np.uint32, 1001) % 50,
+        kwargs={"method": "counting"}, values=rand(np.uint64, 1001))
     # a piece of exactly B: the donated words are swept where they lie
     x = rand(np.uint32, 1024)
     add(1, "donate-keys-bitonic", "keys", x,

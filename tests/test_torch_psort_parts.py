@@ -1,7 +1,8 @@
 """Pieces of the port's distributed sort against the JAX package's, with no
 process group: the refinement plan, the word-tuple comparison and search,
 and the two merges of sorted runs (the port's plain twin against the JAX
-Pallas engine, interpreted on the CPU). Comparisons are bit-exact.
+Pallas engine, interpreted on the CPU); the local sort's engines and the
+rule of ``"auto"`` among them. Comparisons are bit-exact.
 """
 
 import jax.numpy as jnp
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from tests.torch_helpers import assert_bits_equal
+from tinyhipradixsort_torch import sort as tsort
 from tinyhipradixsort_torch.ops import bitonic_engine as tbe
 from tinyhipradixsort_torch.parallel import psort as tps
 from tinyhipradixsort_tpu.ops import bitonic_engine as jbe
@@ -134,11 +136,37 @@ def test_merge_two_runs_matches_jax(monkeypatch, a, b, route):
     assert routes == [route]
     for g, w in zip(got, want):
         assert_bits_equal(g, np.asarray(w))
-    # the lexsort engine gives the same merge
+    # the lexsort engine gives the same merge; under "counting" (the
+    # local sort's engine) the merge is the network's
     lex = tps._merge_two_runs(_torch_words(ra[0] + ra[1]),
                               _torch_words(rb[0] + rb[1]), 2, "lexsort")
-    for g, w in zip(lex, got):
-        assert torch.equal(g, w)
+    routes.clear()
+    cnt = tps._merge_two_runs(_torch_words(ra[0] + ra[1]),
+                              _torch_words(rb[0] + rb[1]), 2, "counting")
+    assert routes == [route]
+    for g, w, c in zip(lex, got, cnt):
+        assert torch.equal(g, w) and torch.equal(c, w)
+
+
+def test_rebalance_merge_under_counting_is_the_network(monkeypatch):
+    # the local sort's engine does not reach the merges: "counting" merges
+    # on the network (its routes), equal to lexsort sorting them together
+    rng = np.random.default_rng(RNG_SEED + 3)
+    kept = _runs(rng, 1, 1000)
+    recv = _runs(rng, 4, 64, base=1000)
+    routes = []
+    monkeypatch.setattr(tbe, "MARK", lambda event, name, words: routes.append(
+        name) if event == "route" else None)
+    lex = tps.rebalance_merge(_torch_words(kept[0] + kept[1]),
+                              _torch_words(recv[0] + recv[1]), 2, 4, 64,
+                              "lexsort")
+    assert not routes
+    got = tps.rebalance_merge(_torch_words(kept[0] + kept[1]),
+                              _torch_words(recv[0] + recv[1]), 2, 4, 64,
+                              "counting")
+    assert routes
+    for g, w in zip(got, lex):
+        assert torch.equal(g[:w.shape[0]], w)
 
 
 def test_local_sort_methods_agree():
@@ -147,12 +175,75 @@ def test_local_sort_methods_agree():
     words = _torch_words(cmp_w), _torch_words(carry_w)
     bc, bk = tps._local_sort_words(*words, "bitonic")
     lc, lk = tps._local_sort_words(*words, "lexsort")
-    for g, w in zip(bc + bk, lc + lk):
-        assert torch.equal(g, w)
-    assert tps._resolve_local_method("auto", torch.device("cpu")) == "lexsort"
-    assert tps._resolve_local_method("auto", torch.device("cuda")) == "bitonic"
+    # counting by every bit of every word: the whole tuple, in any order
+    cc, ck = tps._local_sort_words(*words, "counting")
+    for g, w, c in zip(bc + bk, lc + lk, cc + ck):
+        assert torch.equal(g, w) and torch.equal(c, w)
+    # "auto" follows what the call shows: device, words a rank, donate
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    min_n = tps.AUTO_COUNTING_MIN_N
+    assert min_n is tsort.AUTO_COUNTING_MIN_N
+    for device, B, donate, engine in (
+            (cuda, min_n - 1, False, "bitonic"),
+            (cuda, min_n, False, "counting"),
+            (cuda, 1 << 28, False, "counting"),
+            (cuda, 1 << 28, True, "bitonic"),
+            (cpu, 1 << 28, False, "lexsort"),
+            (cpu, 8, True, "lexsort")):
+        assert tps._resolve_local_method("auto", device, B, donate) == engine
+    for method in ("bitonic", "counting", "lexsort"):
+        assert tps._resolve_local_method(method, cuda, 8, True) == method
+        assert tps._resolve_local_method(method, cpu, min_n) == method
     with pytest.raises(ValueError):
-        tps._resolve_local_method("pallas", torch.device("cpu"))
+        tps._resolve_local_method("pallas", cpu, 8)
+
+
+def _psort_local_words(rng, n, npad, n_idx, sentinel_share=0.1):
+    """A rank's words as psort's local sort takes them: keys with real
+    all-ones keys among them, then ``npad`` entry pads (all-ones key and
+    index) at the tail; the index ascends with position, ``n_idx`` words."""
+    key = rng.integers(0, 8, size=n + npad).astype(np.uint32)
+    key[rng.random(n + npad) < sentinel_share] = 0xFFFFFFFF
+    key[n:] = 0xFFFFFFFF
+    g = np.arange(n + npad, dtype=np.int64) * 3 + (1 << 32) * (n_idx - 1)
+    idx = tps._index_words(torch.from_numpy(g), int(g[n - 1]) + 1, n_idx)
+    return _torch_words([key]) + idx
+
+
+@pytest.mark.parametrize("n_idx", [1, 2])
+@pytest.mark.parametrize("n,npad", [(3000, 100), (4096, 0), (5, 2043)])
+def test_counting_local_sort_keeps_pads_behind_equal_keys(n, npad, n_idx):
+    # the keys alone sorted, the index carried: a real all-ones key stays
+    # before every pad, as the whole tuple's order has it
+    rng = np.random.default_rng(RNG_SEED + n + npad + n_idx)
+    cmp_w = _psort_local_words(rng, n, npad, n_idx)
+    carry = [torch.from_numpy(rng.integers(-2**31, 2**31, size=n + npad,
+                                           dtype=np.int64).astype(np.int32))]
+    want = tps._local_sort_words(cmp_w, carry, "lexsort")
+    got = tps._local_sort_words(cmp_w, carry, "counting",
+                                sort_bits=[32] + [0] * n_idx)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g, w)
+    # the pads last: their index words are the sorted tail's
+    assert (got[0][0][n:] == -1).all()
+    assert all((w[n:] == -1).all() for w in got[0][1:])
+
+
+@pytest.mark.parametrize("width", [3, 8, 13])
+def test_counting_local_sort_of_a_window_keeps_pads_behind(width):
+    # a window's key word holds its value below 2**width, the pads
+    # all-ones: sorting the window's bits alone gives the tuple order
+    rng = np.random.default_rng(RNG_SEED + width)
+    n, npad = 2500, 600
+    key = rng.integers(0, 1 << width, size=n + npad).astype(np.uint32)
+    key[rng.random(n + npad) < 0.2] = (1 << width) - 1
+    key[n:] = 0xFFFFFFFF
+    idx = tps._index_words(torch.arange(n + npad), n, 1)
+    cmp_w = _torch_words([key]) + idx
+    want = tps._local_sort_words(cmp_w, [], "lexsort")
+    got = tps._local_sort_words(cmp_w, [], "counting", sort_bits=[width, 0])
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("n_idx", [1, 2])

@@ -358,9 +358,10 @@ def _wire_bytes(P, me, lengths, wire):
 def _check_psort_call(spans, counts, api, P, me, lengths, wire):
     """One rank's record of one psort call: the root and its steps in
     order, the layers summing to the root, ``psort.wire_bytes`` from
-    ``psort.WIRE``'s words and the plan, and ``psort.host_reads`` (the
+    ``psort.WIRE``'s words and the plan, ``psort.host_reads`` (the
     pieces' lengths, the real count, the cuts, one a ring round, the
-    counts before the rebalance and the overflow flag)."""
+    counts before the rebalance and the overflow flag) and the local
+    sort's engine."""
     from tinyhipradixsort_torch.parallel import psort
     (root,) = [s for s in _work(spans) if s.parent is None]
     assert root.name == api and {s.call for s in _work(spans)} == {root.call}
@@ -383,6 +384,13 @@ def _check_psort_call(spans, counts, api, P, me, lengths, wire):
     assert counts.get((root.call, "psort.wire_bytes"), 0) == \
         _wire_bytes(P, me, lengths, wire)
     assert counts[(root.call, "psort.host_reads")] == 5 + P - 1
+    # the local sort's engine: its span's attribute, one count a call
+    # (lexsort: these calls sort CPU tensors with the default method)
+    (local,) = [s for s in spans if s.name == "psort.local_sort"]
+    assert local.attrs["engine"] == "lexsort"
+    assert {k: v for k, v in counts.items()
+            if k[1].startswith("psort.local.")} == {
+        (root.call, "psort.local.lexsort"): 1}
 
 
 @pytest.fixture(scope="module")

@@ -21,12 +21,17 @@ elements.
 0. **Mod-P interleaved pre-exchange** (``all_to_all_single``): rank ``j``
    ends up with the global positions ``≡ j (mod P)``, so any
    position-contiguous mass (constant keys, presorted runs) splits evenly.
-1. **Local sort** of the ``B`` tuples: the bitonic engine on CUDA, a stable
+1. **Local sort** of the ``B`` tuples: on CUDA the counting engine from
+   ``B >= sort.AUTO_COUNTING_MIN_N`` (not donated), the rule and crossover
+   of ``sort_*``'s ``"auto"``, else the bitonic engine; a stable
    ``torch.sort`` per word (the counterpart of ``jnp.lexsort``) elsewhere.
    The compare tuple ends with the global index, so tuples are globally
-   distinct and the sort is stable. The index is one u32 word below a
-   global n of 2**32 and two, (hi, lo), from there on or with
-   ``_force_wide=True``. A keys-only sort whose keys come back from their
+   distinct and the sort is stable. The index never falls with the local
+   position (the entry pads' all-ones index is the local tail), so the
+   counting engine sorts by the key words alone and carries the index as
+   a payload: stability gives the tuple's order. The index is one u32
+   word below a global n of 2**32 and two, (hi, lo), from there on or
+   with ``_force_wide=True``. A keys-only sort whose keys come back from their
    bits (``idx_synth``) ships no index: after the pre-exchange each rank
    synthesizes its words' index from its rank and their positions
    (:func:`_synth_index_words`), sorts with it, and drops it before step 4,
@@ -61,18 +66,22 @@ While :mod:`..tracing` records, each call of :func:`psort_keys`,
 :func:`psort_pairs` and :func:`psort_indices` is one span of that name,
 the root of a new call, and its steps are its children:
 ``psort.relay_in`` and ``psort.relay_out`` (only where a piece differs
-from ``B``), ``psort.pre_exchange`` (only at P > 1), ``psort.local_sort``,
-``psort.splitters`` (the samples, the splitters, the real count and the
-splitters' local insertion points), ``psort.refine`` (one a round,
-attribute ``round``), ``psort.cuts`` (the cuts read to the host, the
-segments and the overflow test), ``psort.ring`` (one a round, attribute
-``round``; round 0 takes the rank's own run, and each run's merges are
-``psort.merge`` spans inside it; the merges of what is left after the
-last round are ``psort.merge`` spans of the call) and ``psort.rebalance``
-(with the reduced overflow flag). Two counters: ``psort.wire_bytes``, the
-bytes of the exchange buffers this rank hands to the group for other
-ranks (the relays, the pre-exchange, the ring and the rebalance; the few
-integers of the samples, candidates and counts are left out), and
+from ``B``), ``psort.pre_exchange`` (only at P > 1),
+``psort.local_sort`` (attribute ``engine``: ``"counting"``,
+``"bitonic"`` or ``"lexsort"``), ``psort.splitters`` (the samples, the
+splitters, the real count and the splitters' local insertion points),
+``psort.refine`` (one a round, attribute ``round``), ``psort.cuts`` (the
+cuts read to the host, the segments and the overflow test),
+``psort.ring`` (one a round, attribute ``round``; round 0 takes the
+rank's own run, and each run's merges are ``psort.merge`` spans inside
+it; the merges of what is left after the last round are ``psort.merge``
+spans of the call) and ``psort.rebalance`` (with the reduced overflow
+flag). The counters: one of ``psort.local.counting``,
+``psort.local.network`` and ``psort.local.lexsort`` a call, the local
+sort's engine; ``psort.wire_bytes``, the bytes of the exchange buffers
+this rank hands to the group for other ranks (the relays, the
+pre-exchange, the ring and the rebalance; the few integers of the
+samples, candidates and counts are left out), and
 ``psort.host_reads``, each read of the device's values on the host
 (``tolist``), which waits for the device's queue.
 """
@@ -88,14 +97,14 @@ import torch.distributed as dist
 from .. import keybits, tracing
 from ..config import SortOrder
 from ..ops import bitonic_engine as be
-from ..ops import common
-from ..sort import _as_input, _check_disjoint, _check_donated, _flatten
-from ..sort import _write_back
+from ..ops import common, counting_engine
+from ..sort import AUTO_COUNTING_MIN_N, _as_input, _check_disjoint
+from ..sort import _check_donated, _flatten, _write_back
 
 #: the all-ones u32 sentinel of a compare word (int32 holds the u32 bits)
 SENTINEL = -1
 _INT32_MIN = -(1 << 31)
-_LOCAL_METHODS = ("auto", "bitonic", "lexsort")
+_LOCAL_METHODS = ("auto", "bitonic", "counting", "lexsort")
 
 #: observer for measurement and tests (``None``: off). Called as
 #: ``WIRE(step, nwords)`` where a step builds its exchange buffers, with the
@@ -222,23 +231,61 @@ def _lexsort_perm(cmp_words: list) -> torch.Tensor:
     return perm
 
 
-def _resolve_local_method(method: str, device: torch.device) -> str:
-    """``"auto"``: the bitonic engine on CUDA, ``"lexsort"`` elsewhere."""
+def _resolve_local_method(method: str, device: torch.device, B: int,
+                          donate: bool = False) -> str:
+    """The local sort's engine for ``B`` words a rank on ``device``.
+    ``"auto"``: on CUDA the counting engine for ``B >=
+    AUTO_COUNTING_MIN_N`` unless donated (``sort._resolve_method``'s rule
+    for 1-D keys), the bitonic engine otherwise; ``"lexsort"`` elsewhere.
+    The merges run on the bitonic engine but under ``"lexsort"``
+    (:func:`_merge_two_runs`, :func:`rebalance_merge`)."""
     if method not in _LOCAL_METHODS:
         raise ValueError(f"unknown method {method!r}; expected one of "
                          f"{_LOCAL_METHODS}")
     if method != "auto":
         return method
-    return "bitonic" if device.type == "cuda" else "lexsort"
+    if device.type != "cuda":
+        return "lexsort"
+    return "counting" if B >= AUTO_COUNTING_MIN_N and not donate \
+        else "bitonic"
+
+
+def _counting_sort_words(cmp_words: list, carry_words: list,
+                         sort_bits: list) -> tuple[list, list]:
+    """The stable sort of the tuples on the counting engine: one LSD sort
+    by the low ``sort_bits[i]`` bits of each cmp word ``i``, last word
+    first, every other word carried (``sort_arrays_counting``'s payloads,
+    then gathers). A word of 0 bits is not sorted by: the caller vouches
+    that those words never fall with the position, so stability alone
+    orders them."""
+    words = list(cmp_words) + list(carry_words)
+    for i in reversed(range(len(cmp_words))):
+        if not sort_bits[i]:
+            continue
+        rest = words[:i] + words[i + 1:]
+        *rest, bits = counting_engine.sort_arrays_counting(
+            words[i], rest, 0, sort_bits[i], with_bits=True)
+        words = rest[:i] + [bits] + rest[i:]
+        del rest, bits
+    return words[:len(cmp_words)], words[len(cmp_words):]
 
 
 def _local_sort_words(cmp_words: list, carry_words: list, method: str,
-                      tuning=None, in_place: bool = False) -> tuple[list, list]:
+                      tuning=None, in_place: bool = False,
+                      sort_bits=None) -> tuple[list, list]:
     """The stable sort of the tuples; ``in_place``: the words are buffers
-    the bitonic engine may sweep where they lie."""
+    the bitonic engine may sweep where they lie. ``sort_bits``: the bits
+    of each cmp word the counting engine sorts by (default 32 each; 0 for
+    trailing words that never fall with the position). Fewer than 32 are
+    exact where a word's bits above them are 0 but on a local tail of
+    all-ones words (psort's pads after a bit window)."""
     if method == "bitonic":
         return be.sort_words(list(cmp_words), list(carry_words), tuning=tuning,
                              in_place=in_place)
+    if method == "counting":
+        return _counting_sort_words(
+            cmp_words, carry_words,
+            [32] * len(cmp_words) if sort_bits is None else sort_bits)
     perm = _lexsort_perm(list(cmp_words))
     return [w[perm] for w in cmp_words], [w[perm] for w in carry_words]
 
@@ -281,13 +328,15 @@ def _merge_runs_tree(cmp_words: list, carry_words: list, nrows: int,
 
 def _merge_two_runs(a_words: list, b_words: list, ncmp: int, method: str,
                     tuning=None) -> list:
-    """Merge two sorted sentinel-padded runs (word lists) into one."""
-    if method == "bitonic":
+    """Merge two sorted sentinel-padded runs (word lists) into one: on the
+    bitonic engine, or sorted together under ``"lexsort"`` (runs are never
+    sorted again by counting: its merges are the network's)."""
+    if method != "lexsort":
         return be._merge_sorted_runs(list(a_words),
                                      [torch.flip(w, (0,)) for w in b_words],
                                      ncmp, tuning)
     merged = [torch.cat([a, b]) for a, b in zip(a_words, b_words)]
-    cw, kw = _local_sort_words(merged[:ncmp], merged[ncmp:], method, tuning)
+    cw, kw = _local_sort_words(merged[:ncmp], merged[ncmp:], method)
     return list(cw) + list(kw)
 
 
@@ -443,11 +492,12 @@ def rebalance_merge(kept: list, recv: list, ncmp: int, nrows: int,
     """The rebalance's merge: the sorted kept run with ``nrows`` received
     sentinel-padded boundary pieces of ``rowlen`` (flat in ``recv``). The
     bitonic engine merge-trees the pieces and merges the two runs (1 +
-    log2(nrows) stages, not a sort); lexsort sorts them together."""
-    if method != "bitonic":
+    log2(nrows) stages, not a sort), under every ``method`` but
+    ``"lexsort"``, which sorts them together."""
+    if method == "lexsort":
         final = [torch.cat([k, r]) for k, r in zip(kept, recv)] if nrows \
             else kept
-        cw, kw = _local_sort_words(final[:ncmp], final[ncmp:], method, tuning)
+        cw, kw = _local_sort_words(final[:ncmp], final[ncmp:], method)
         return list(cw) + list(kw)
     if not nrows:
         return list(kept)
@@ -493,7 +543,8 @@ def _synth_index_words(B: int, P_: int, me: int, n: int, n_idx: int,
 
 def _psort_shard(cmp_words: list, carry_words: list, *, cap: int, cap3: int,
                  method: str, sample_s: int, n_idx: int = 1, synth_n=None,
-                 refine=None, tuning=None, group=None, owned: bool = False):
+                 refine=None, tuning=None, group=None, owned: bool = False,
+                 key_bits=None):
     """The per-rank pipeline on (B,) int32 words in the padded layout (the
     JAX package's ``_psort_shard``).
 
@@ -503,7 +554,12 @@ def _psort_shard(cmp_words: list, carry_words: list, *, cap: int, cap3: int,
     after the pre-exchange (:func:`_synth_index_words`), used by the local
     sort, the splitters, the cuts and the pad count, and dropped before the
     ring exchange. ``owned``: the words are buffers the local sort may
-    sweep in place. Returns (cmp_words, carry_words, overflow): exactly B
+    sweep in place. ``method`` is the local sort's engine (the merges run
+    on the network but under ``"lexsort"``); ``key_bits``: the significant
+    bits of each key word (default 32 each), which the counting engine
+    sorts by, carrying the index words, which never fall with the local
+    position (:func:`_synth_index_words`; at P = 1 the entry's order).
+    Returns (cmp_words, carry_words, overflow): exactly B
     sorted elements per rank, rank p holding the global sorted ranks
     [p*B, (p+1)*B), and the overflow flag reduced over the group (a host
     bool); with ``synth_n`` the cmp words are the key words.
@@ -536,13 +592,17 @@ def _psort_shard(cmp_words: list, carry_words: list, *, cap: int, cap3: int,
     # 1. local stable sort (with the synthesized index on the keys-only
     # path)
     ncmp_s = ncmp if synth_n is None else ncmp + n_idx
+    nkey = ncmp_s - n_idx
     with tracing.span("psort.local_sort", n=B,
-                      words=nw + ncmp_s - ncmp):
+                      words=nw + ncmp_s - ncmp, engine=method):
+        tracing.count("psort.local.network" if method == "bitonic"
+                      else f"psort.local.{method}")
         if synth_n is not None:
             words[ncmp:ncmp] = _synth_index_words(B, P_, me, synth_n, n_idx,
                                                   dev)
         cmp_words, carry_words = _local_sort_words(
-            words[:ncmp_s], words[ncmp_s:], method, tuning, in_place=owned)
+            words[:ncmp_s], words[ncmp_s:], method, tuning, in_place=owned,
+            sort_bits=(key_bits or [32] * nkey) + [0] * n_idx)
         del words
 
     # 2. s regular samples per rank, gathered; the replicated lexsort of
@@ -782,7 +842,6 @@ def _psort_entry(keys, leaves, *, group, descending, method, oversample,
     if keys.ndim != 1:
         raise ValueError(f"keys must be 1-D, got shape {tuple(keys.shape)}")
     dev = keys.device
-    method = _resolve_local_method(method, dev)
     P_ = dist.get_world_size(group)
     me = dist.get_rank(group)
     for leaf in leaves:
@@ -800,11 +859,15 @@ def _psort_entry(keys, leaves, *, group, descending, method, oversample,
     plan = capacity_plan(n, P_, oversample=oversample, slack=slack,
                          refine=refine, _unsafe_cap=_unsafe_cap)
     B = plan.B
+    method = _resolve_local_method(method, dev, B, donate)
 
     bits = keybits.key_bits(keys, descending=descending)
     width = keys.dtype.itemsize * 8
     full_window = (start_bit, end_bit) == (0, width)
     key_cmp = be.bits_to_cmp_words(bits, start_bit, end_bit)
+    # the window's bits fill the key words from the last one up
+    key_bits = [end_bit - start_bit - 32 * (len(key_cmp) - 1)]
+    key_bits += [32] * (len(key_cmp) - 1)
     kind = keybits.dtype_kind(keys.dtype)
     keys_from_bits = full_window and (kind in "iu"
                                       or (kind == "f" and not zeros_exact))
@@ -832,7 +895,7 @@ def _psort_entry(keys, leaves, *, group, descending, method, oversample,
         words[nkey:], cap=plan.cap, cap3=plan.cap3, method=method,
         sample_s=plan.s, n_idx=n_idx, synth_n=n if synth else None,
         refine=plan.refine, tuning=tuning, group=group,
-        owned=donate or relayed)
+        owned=donate or relayed, key_bits=key_bits)
     del words
     # only the words the result needs travel back
     need = cmp_out[:nkey] if "keys" in want and keys_from_bits else []
@@ -885,11 +948,14 @@ def psort_keys(keys, *, group=None, order="ascending", method="auto",
     this rank's piece sits at ``off`` and has ``len`` elements.
 
     Call on every rank of ``group`` (``None``: the default group), with 1-D
-    keys on this rank's device. ``method``: the local sorts' and merges'
-    engine, ``"bitonic"``, ``"lexsort"`` or ``"auto"`` (the bitonic engine on
-    CUDA, lexsort elsewhere). ``check=True`` also returns the overflow flag
-    (True: a splitter segment exceeded the static capacity and elements were
-    dropped; raise ``slack``/``oversample``); otherwise an overflow raises
+    keys on this rank's device. ``method``: the local sort's engine,
+    ``"counting"``, ``"bitonic"``, ``"lexsort"`` or ``"auto"`` (on CUDA
+    counting from ``sort.AUTO_COUNTING_MIN_N`` words a rank unless
+    donated, else the bitonic engine; lexsort elsewhere); the merges run
+    on the bitonic engine, on lexsort under ``"lexsort"``. ``check=True``
+    also returns the overflow flag (True: a splitter segment exceeded the
+    static capacity and elements were dropped; raise
+    ``slack``/``oversample``); otherwise an overflow raises
     ``RuntimeError`` on every rank. ``start_bit``/``end_bit`` and
     ``zeros_exact`` have :func:`..sort.sort_keys` semantics
     (``zeros_exact=False`` lets float keys come back from their bits, so
