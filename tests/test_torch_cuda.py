@@ -530,7 +530,11 @@ def test_launch_spans_count_what_the_kernels_count(cuda, method):
         assert launches == [4, 4, 4, 0]
     else:
         assert launches[:3] == [0, 0, 0] and launches[3] > 0
-    assert rec.counts == {(1, "launches"): sum(launches)}
+    want = {(1, "launches"): sum(launches)}
+    if method == "counting":  # 4 passes over the bits alone, 4 B a key
+        want.update({(1, "counting.passes"): 4,
+                     (1, "counting.moved_bytes"): 4 * 2 * (1 << 20) * 4})
+    assert rec.counts == want
     assert [s.name for s in rec.spans
             if s.parent is None and s.name != "gc"] == ["sort_keys"]
     assert tracing.split(rec.spans)[1]["kernels"] > 0

@@ -125,6 +125,47 @@ def test_counting_counts_the_arrays_its_pad_stage_copies(n, copies, api):
     assert [s.name for s in rec.spans].count("counting.pad") == 1
 
 
+WIDTH_CASES = {  # keys, payload, window -> key_bytes, payload_bytes, passes
+    "u32-keys": (torch.uint32, None, (0, 32), 4, 0, 4),
+    "u32-keys-16-bit": (torch.uint32, None, (8, 24), 4, 0, 2),
+    "u64-pairs": (torch.uint64, torch.uint64, (0, 64), 8, 8, 8),
+}
+
+
+@pytest.mark.parametrize("case", list(WIDTH_CASES))
+def test_counting_records_its_widths_and_bytes(case):
+    from sortbench import stats
+    key_dt, val_dt, (lo, hi), key_bytes, payload_bytes, passes = \
+        WIDTH_CASES[case]
+    n, npad = 3000, 4096  # two tiles of 2048
+    bits = np.random.default_rng(3).integers(0, 2**64, n, dtype=np.uint64,
+                                             endpoint=False)
+    keys = torch.from_numpy(bits).view(torch.int64).to(
+        torch.int32 if key_dt == torch.uint32 else torch.int64).view(key_dt)
+
+    def call():
+        kw = {"method": "counting", "start_bit": lo, "end_bit": hi}
+        if val_dt is None:
+            return tthrs.sort_keys(keys, **kw)
+        return tthrs.sort_pairs(keys, torch.arange(n).view(val_dt), **kw)
+
+    call()  # off: records nothing, and the widths cost no work
+    assert tracing._REC is None
+    with tracing.record() as rec:
+        call()
+    sort = next(s for s in rec.spans if s.name == "counting.sort")
+    assert sort.attrs == {"n": n, "words": int(val_dt is not None),
+                          "key_bytes": key_bytes,
+                          "payload_bytes": payload_bytes, "passes": passes}
+    stages = [s for s in rec.spans if s.name.startswith("counting.")
+              and s.name not in ("counting.sort", "counting.pad")]
+    assert len(stages) == 4 * passes
+    assert {s.attrs["width"] for s in stages} == {8}
+    assert rec.counts[(1, "counting.passes")] == passes
+    assert rec.counts[(1, "counting.moved_bytes")] == stats.lsd_floor_bytes(
+        npad, key_bytes, payload_bytes, hi - lo)
+
+
 @pytest.mark.parametrize("method", METHODS)
 def test_the_layers_sum_to_the_root_span(method):
     with tracing.record() as rec:

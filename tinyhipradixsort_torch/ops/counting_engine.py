@@ -336,22 +336,41 @@ def sort_arrays_counting(bits, arrays, start_bit: int, end_bit: int,
     left over, and the leftovers are gathered by it.
 
     While :mod:`..tracing` records, the sort is the span ``counting.sort``
-    and its stages its children: ``counting.pad`` (:func:`_stage`, which
-    counts the arrays it copies in ``counting.pad_copies``), then in each
-    pass (attributes ``pass`` and ``shift``) ``counting.histogram``,
+    (attributes ``n``, ``words`` and :func:`_record_widths`'s) and its
+    stages its children: ``counting.pad`` (:func:`_stage`, which counts the
+    arrays it copies in ``counting.pad_copies``), then in each pass
+    (attributes ``pass``, ``shift`` and ``width``) ``counting.histogram``,
     ``counting.scan``, ``counting.rank_scatter`` and ``counting.gathers``.
     """
     if tile != histogram.round_tile(tile):
         raise ValueError(f"tile {tile} is not a histogram tile (a multiple "
                          "of 128 in [1024, 2**22])")
-    with tracing.span("counting.sort", n=bits.shape[-1], words=len(arrays)):
+    with tracing.span("counting.sort", n=bits.shape[-1],
+                      words=len(arrays)) as sort_span:
         return _sort_counting(bits, arrays, start_bit, end_bit, radix_bits,
-                              tile, with_bits)
+                              tile, with_bits, sort_span)
+
+
+def _record_widths(sort_span, plan, elements: int, bits, payloads) -> None:
+    """While recording: ``sort_span`` (``counting.sort``) gains ``key_bytes``
+    (the bits' element size), ``payload_bytes`` (the carried ``payloads``'
+    summed row bytes) and ``passes`` (``len(plan)``); the call's counters
+    ``counting.passes`` and ``counting.moved_bytes`` gain the passes and
+    what their :func:`rank_scatter` reads and writes of bits and payloads,
+    ``2 * elements * (key_bytes + payload_bytes)`` a pass over ``elements``
+    padded elements."""
+    key_bytes = bits.dtype.itemsize
+    payload_bytes = sum(payload_row_bytes(p, elements) for p in payloads)
+    sort_span.attrs.update(key_bytes=key_bytes, payload_bytes=payload_bytes,
+                           passes=len(plan))
+    tracing.count("counting.passes", len(plan))
+    tracing.count("counting.moved_bytes",
+                  len(plan) * 2 * elements * (key_bytes + payload_bytes))
 
 
 def _sort_counting(bits, arrays, start_bit, end_bit, radix_bits, tile,
-                   with_bits):
-    """:func:`sort_arrays_counting` inside its span."""
+                   with_bits, sort_span):
+    """:func:`sort_arrays_counting` inside its span ``sort_span``."""
     global GATHERED
     batched = bits.ndim == 2
     if not batched:
@@ -360,6 +379,8 @@ def _sort_counting(bits, arrays, start_bit, end_bit, radix_bits, tile,
     R, n = bits.shape
     if n <= 1 or R == 0:
         # nothing moves; copies, since the bits can be a view of the keys
+        if tracing.on():
+            _record_widths(sort_span, [], 0, bits, [])
         out = [a.clone() for a in arrays + [bits] * with_bits]
     else:
         plan = common.digit_plan(start_bit, end_bit, radix_bits)
@@ -374,8 +395,12 @@ def _sort_counting(bits, arrays, start_bit, end_bit, radix_bits, tile,
         arrays_p = [a.view(R * npad, *a.shape[2:]) for a in arrays_p]
         keep = carried(arrays_p, R * npad)
         rest = [k for k in range(len(arrays_p)) if k not in keep]
+        if tracing.on():
+            _record_widths(sort_span, plan, R * npad, bits_p,
+                           [arrays_p[k] for k in keep])
         for i, (shift, width) in enumerate(plan):
-            at = {"pass": i, "shift": shift}  # the pass's span attributes
+            # the pass's span attributes
+            at = {"pass": i, "shift": shift, "width": width}
             bits_p, src, moved = _pass(
                 bits_p, shift, width, R, tile, idx_dt,
                 [arrays_p[k] for k in keep], bool(rest), at)

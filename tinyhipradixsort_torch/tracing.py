@@ -11,7 +11,10 @@ edge there, outside the span's own time.
 
 A span (:class:`Span`) holds its name, the call it belongs to, its id and
 its parent's, its start and end, and a few small attributes (``n``,
-``words``, ``pass``, ``shift``, ``route``, ``engine``). A span opened while no span is
+``words``, ``pass``, ``shift``, ``width``, ``route``, ``engine``;
+``counting.sort``'s ``key_bytes``, ``payload_bytes`` and ``passes``). A
+span entered ``as s`` while recording takes more attributes in ``s.attrs``
+until it ends, for what is known only inside it. A span opened while no span is
 open is the root of a new call: the public ``sort_keys``, ``sort_pairs``
 and ``sort_indices`` (an engine called directly roots its own call). The
 layer of a span follows its name: the root is the API's; ``launch.*`` is
