@@ -161,11 +161,13 @@ Phases, one output line each (time, kernel launches, result):
 The line before the last is the kernel report, {"kernels": [...]}; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero
 without a result; so does a machine without CUDA. ``timing_only()`` runs
-phases 5 and 6 alone (see there).
+phases 5 and 6 alone (see there). ``rank_scatter_ab(PATH)`` times another
+commit's rank_scatter.cu against this tree's in turns (see there).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -173,6 +175,7 @@ import re
 import resource
 import socket
 import statistics
+import subprocess
 import sys
 import time
 import traceback
@@ -1928,6 +1931,104 @@ def phase_rank_scatter_timing(x: torch.Tensor, card: str) -> dict:
     words.clear()
     torch.cuda.empty_cache()
     return result
+
+
+#: rank_scatter_ab's cases at 2**28 words, width 8, tile 2048, int32 src:
+#: (label, u64 bits, payload row bytes, want_src)
+AB_ROWS = [("bits", False, (), False),
+           ("keys as a 4-byte payload", False, (4,), False),
+           ("bits + src", False, (), True),
+           ("u64 bits + src", True, (), True),
+           ("u64 bits + u64 payload", True, (8,), False)]
+
+
+def rank_scatter_ab(parent_rs, reps: int = 5) -> dict:
+    """The rank-and-scatter kernel of another commit's ``rank_scatter.cu``
+    (``parent_rs``, unpacked from git) against this tree's, in turns in one
+    process: ``python3 -c "import chip_smoke as c;
+    c.rank_scatter_ab('PATH')"``. Both are built as the package's own is
+    (``cuda_lib.NVCC_FLAGS``), and on each case of AB_ROWS timed parent,
+    change, change, parent, each turn a median of ``reps`` calls by CUDA
+    events through ``counting_engine.rank_scatter`` with that library in
+    place of the package's, each output bit-equal to the plain version's.
+    Logs, for each case and source, the turns' ms, the share of the bound,
+    the blocks a SM (``thrs_rank_scatter_per_sm``, or "-" where the source
+    has none) and ptxas's registers and spills; returns ``{(case, label):
+    [ms, ...]}``."""
+    card = card_line()
+    sources = {"parent": Path(parent_rs),
+               "change": cuda_lib.CSRC_DIR / "rank_scatter.cu"}
+    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}  # both nvcc at once
+    for label, src in sources.items():
+        so = cuda_lib.BUILD_DIR / f"librs_ab_{label}.so"
+        jobs[label] = so, subprocess.Popen(
+            [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(so), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs, regs = {}, {}
+    for label, (so, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed building {label}:\n{out}")
+        libs[label] = ctypes.CDLL(str(so))
+        regs[label] = {name: (r, sp) for name, r, sp in ptxas_report(out)}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 25)
+    tile, width, n = counting_engine.DEFAULT_TILE, 8, 1 << 28
+    order = list(sources) + list(sources)[::-1]
+    own = counting_engine._rank_scatter_fn
+    times = {}
+    try:
+        for label, wide, row_bytes, want_src in AB_ROWS:
+            bits = _random_bits(n, wide, gen)
+            base = _stage2(bits, 0, width, tile, 1, torch.int32)
+            payloads = _payloads(n, row_bytes, gen)
+            args = (bits, 0, width, base, tile, torch.int32, payloads,
+                    want_src)
+            want = counting_engine.rank_scatter_reference(*args)
+            moved = rank_scatter_bytes(n, bits.dtype.itemsize, row_bytes,
+                                       want_src, base.numel())
+            bound_ms = moved / H100_BYTES_PER_S * 1e3
+            for src_label in order:
+                fn = libs[src_label].thrs_rank_scatter
+                fn.argtypes, fn.restype = own().argtypes, own().restype
+                counting_engine._rank_scatter_fn = lambda fn=fn: fn
+                got = counting_engine.rank_scatter(*args)
+                same = (torch.equal(got[0], want[0])
+                        and all(torch.equal(a, b)
+                                for a, b in zip(got[2], want[2]))
+                        and (not want_src or torch.equal(got[1], want[1])))
+                if not same:
+                    raise AssertionError(f"rank_scatter of {src_label} != "
+                                         f"plain version on {label}")
+                del got
+                times.setdefault((label, src_label), []).append(cuda_ms(
+                    lambda: counting_engine.rank_scatter(*args), reps))
+            kernel = (f"rank_scatter_kernel<{'u64' if wide else 'u32'},i32>")
+            for src_label, lib in libs.items():
+                per_sm = "-"
+                if hasattr(lib, "thrs_rank_scatter_per_sm"):
+                    fn = lib.thrs_rank_scatter_per_sm
+                    fn.argtypes = \
+                        counting_engine._rank_scatter_per_sm_fn().argtypes
+                    per_sm = fn(bits.dtype.itemsize, 4,
+                                (ctypes.c_longlong * 4)(*row_bytes),
+                                len(row_bytes), n, 1, tile,
+                                ctypes.byref(ctypes.c_longlong()))
+                ms = times[(label, src_label)]
+                r, sp = regs[src_label].get(kernel, ("?", "?"))
+                log("10 rank-scatter A/B",
+                    f"{label} n=2**28 width=8 tile={tile}: {src_label} "
+                    f"{' / '.join(f'{t:.6f}' for t in ms)} ms (turns), "
+                    f"{100 * bound_ms / statistics.median(ms):.1f}% of its "
+                    f"{bound_ms:.6f} ms bound; blocks a SM {per_sm}; "
+                    f"{kernel}: {r}; {sp}; bit-equal to the plain version; "
+                    f"card: {card}")
+            del bits, base, payloads, args, want
+            torch.cuda.empty_cache()
+    finally:
+        counting_engine._rank_scatter_fn = own
+    return times
 
 
 #: the counting engine's stage spans, in the order their ends come

@@ -531,9 +531,11 @@ def test_launch_spans_count_what_the_kernels_count(cuda, method):
     else:
         assert launches[:3] == [0, 0, 0] and launches[3] > 0
     want = {(1, "launches"): sum(launches)}
-    if method == "counting":  # 4 passes over the bits alone, 4 B a key
+    if method == "counting":  # 4 passes over the bits alone, 4 B a key,
+        # each with two blocks or more at work on every SM
         want.update({(1, "counting.passes"): 4,
-                     (1, "counting.moved_bytes"): 4 * 2 * (1 << 20) * 4})
+                     (1, "counting.moved_bytes"): 4 * 2 * (1 << 20) * 4,
+                     (1, "rank_scatter.overlapped"): 4})
     assert rec.counts == want
     assert [s.name for s in rec.spans
             if s.parent is None and s.name != "gc"] == ["sort_keys"]
@@ -612,12 +614,18 @@ def _payloads(rng, n, row_bytes, device):
 
 def _check_kernel(cuda, x, shift, width, tile, R, idx_dt, row_bytes,
                   want_src, rng):
-    """The kernel against its plain version: bits, src (or None) and every
-    payload bit-equal."""
+    """The kernel against its plain version on the host's bits ``x`` and
+    random payloads from ``rng``."""
     wide = x.dtype == np.uint64
     bits = torch.from_numpy(x.view(np.int64 if wide else np.int32)).to(cuda)
+    _compare(bits, shift, width, tile, R, idx_dt,
+             _payloads(rng, x.shape[0], row_bytes, cuda), want_src)
+
+
+def _compare(bits, shift, width, tile, R, idx_dt, payloads, want_src):
+    """The kernel against its plain version: bits, src (or None) and every
+    payload bit-equal."""
     base = _stage2(bits, shift, width, tile, R, idx_dt)
-    payloads = _payloads(rng, x.shape[0], row_bytes, cuda)
     before = tce.KERNEL_LAUNCHES
     got = tce.rank_scatter(bits, shift, width, base, tile, idx_dt,
                            payloads=payloads, want_src=want_src)
@@ -670,6 +678,110 @@ def test_rank_scatter_kernel_u64_widths_padded_rows(cuda, width):
     x[:, -(tile // 2 + 17):] = np.iinfo(np.uint64).max
     _check_kernel(cuda, x.reshape(-1), 64 - width, width, tile, R,
                   torch.int64, (8, 4), True, rng)
+
+
+def _per_sm(word_bytes, idx_bytes=4, row_bytes=()):
+    return tce._rank_scatter_per_sm(word_bytes, idx_bytes,
+                                    tuple(row_bytes))[0]
+
+
+def _resident(word_bytes, idx_bytes=4, row_bytes=()):
+    """The blocks the kernel keeps at work at once on the whole card."""
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    return _per_sm(word_bytes, idx_bytes, row_bytes) * sms
+
+
+def _check_on_card(bits, shift, width, tile, R, idx_dt, row_bytes, want_src,
+                   seed):
+    """The kernel against its plain version on bits already on the card,
+    with random payloads made there (large sizes, which the host would
+    make slowly)."""
+    gen = torch.Generator(device=bits.device)
+    gen.manual_seed(seed)
+    n = bits.shape[0]
+    payloads = []
+    for rb in row_bytes:
+        shape = (n, 4) if rb == 16 else (n,)
+        dt = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64,
+              16: torch.int32}[rb]
+        payloads.append(torch.randint(-2**62, 2**62, shape, generator=gen,
+                                      device=bits.device).to(dt))
+    _compare(bits, shift, width, tile, R, idx_dt, payloads, want_src)
+
+
+def _card_bits(n, wide, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    if wide:
+        hi = torch.randint(-2**31, 2**31, (n,), generator=gen, device="cuda",
+                           dtype=torch.int64)
+        return (hi << 32) | torch.randint(0, 2**32, (n,), generator=gen,
+                                          device="cuda", dtype=torch.int64)
+    return torch.randint(-2**31, 2**31, (n,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+@pytest.mark.parametrize("wide,row_bytes,want_src", [
+    (False, (), False), (False, (4,), True), (True, (8,), False)])
+def test_rank_scatter_kernel_at_the_resident_blocks(cuda, edge, wide,
+                                                    row_bytes, want_src):
+    # segments (a chunk's 4 or 2 tiles of 2048) just below, at and just
+    # above the blocks the card keeps at work at once: every block takes
+    # one segment, or one block takes a second from the tickets
+    word = 8 if wide else 4
+    segs = _resident(word, 4, row_bytes) + edge
+    n = segs * (32768 // word)
+    _check_on_card(_card_bits(n, wide, segs), 8, 8, 2048, 1, torch.int32,
+                   row_bytes, want_src, segs + 1)
+
+
+def test_rank_scatter_kernel_walks_long_tiles_beside_other_blocks(cuda):
+    # tiles of 2**22 words (512 chunks each, a running count a digit), more
+    # of them than the card has SMs, so some SMs hold two blocks walking
+    # their tiles at once: bits + src, which stage no payload
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert _per_sm(4, 4, ()) >= 2
+    tiles = sms + 8
+    _check_on_card(_card_bits(tiles << 22, False, 5), 16, 8, 1 << 22, 2,
+                   torch.int32, (), True, 6)
+
+
+@pytest.mark.parametrize("kind", ["one", "two"])
+def test_rank_scatter_kernel_on_skew_with_the_largest_stage(cuda, kind):
+    # every word's digit the same, or one of two; four payloads, 16-byte
+    # rows among them, so a block stages the most it can
+    bits = _card_bits(1 << 24, False, 7)
+    bits = (torch.full_like(bits, 0x5A5A5A5A) if kind == "one" else
+            torch.where(bits < 0, 0x5A5A5A5A, 0x25A5A5A5).to(torch.int32))
+    _check_on_card(bits, 0, 8, 2048, 1, torch.int32, (16, 8, 4, 2), True, 8)
+
+
+def test_rank_scatter_kernel_u64_with_int64_src(cuda):
+    # the <u64, i64> instantiation, more segments than the resident blocks
+    n = 1 << 24
+    assert n // 4096 > _resident(8, 8, (8,))
+    _check_on_card(_card_bits(n, True, 9), 48, 8, 2048, 1, torch.int64,
+                   (8,), True, 10)
+
+
+def test_rank_scatter_launch_records_its_blocks_a_sm(cuda):
+    # the bits alone (the sort_keys pass) keep two blocks or more on each
+    # SM; the launch span carries the blocks a SM and the grid, and the
+    # recorder counts each launch that keeps two or more
+    per_sm = _per_sm(4)
+    assert per_sm >= 2
+    n, tile = 1 << 22, 2048
+    bits = _card_bits(n, False, 11)
+    base = _stage2(bits, 0, 8, tile, 1, torch.int32)
+    with tracing.record() as rec:
+        tce.rank_scatter(bits, 0, 8, base, tile, torch.int32, want_src=False)
+    spans = [s for s in rec.spans if s.name == "launch.rank_scatter"]
+    assert len(spans) == 1
+    assert spans[0].attrs["per_sm"] == per_sm
+    assert spans[0].attrs["grid"] == min(n // 8192, _resident(4))
+    assert rec.counts[(1, "rank_scatter.overlapped")] == 1
 
 
 def test_counting_engine_gathers_only_what_it_cannot_carry(cuda):

@@ -25,10 +25,10 @@
 // What bounds it. Every word and every payload row is read once and
 // written once, `base` is read once and `src` written once if it is asked
 // for. The counting sort_keys pass at 2**28 u32 (tile 2048, width 8, the
-// keys carried as one 4-byte payload, no src) moves 1.074 x 4 + 0.134 =
-// 4.429 GB, 1.32 ms at 3.35 TB/s on an H100 SXM; bits + src 3.355 GB,
-// 1.00 ms. The ranking is some 30 integer operations a word, 0.48 ms at
-// 2**28: bytes set the bound.
+// bits alone) moves 1.074 x 2 + 0.134 = 2.282 GB, 0.681 ms at 3.35 TB/s
+// on an H100 SXM; the sort_pairs pass (one 4-byte payload) 4.429 GB, 1.32
+// ms; bits + src 3.355 GB, 1.00 ms. The ranking is some 30 integer
+// operations a word, 0.48 ms at 2**28: bytes set the bound.
 //
 // The design. Every output stream is scattered in runs: the words of one
 // digit that a chunk sends to consecutive places. A run that ends inside a
@@ -44,9 +44,26 @@
 //   count[t][d], so ranking them together from base[t0] gives the same
 //   destinations. A chunk never crosses a row. Where a tile is longer, the
 //   block walks it chunk by chunk and carries a running count a digit;
-// - blocks are persistent, one a SM (512 threads), and take segments (a
-//   chunk's tiles, or one long tile) in order from a counter, so the blocks
-//   at work hold neighbouring segments, whose runs of a digit meet;
+// - blocks are persistent (512 threads) and take segments (a chunk's
+//   tiles, or one long tile) in order from a counter, so the blocks at work
+//   hold neighbouring segments, whose runs of a digit meet;
+// - two blocks run on each SM where both fit, each on its own chunk. A
+//   chunk passes through phases with a barrier between them: the ranking
+//   (16 dependent rounds a warp through shared memory), the scans over the
+//   warps and over the digits, the offsets, and the writes. With one block
+//   on an SM, memory waited through all but the writes: a chunk took 8.1 us
+//   on an H100 against the 2.6 us that an SM's share of the card's
+//   bandwidth needs for its 64 KB. Two blocks a SM, in different phases,
+//   overlap one's barriers and ranking with the other's stores: 6.1 us a
+//   chunk a SM, the sort_keys pass at 2**28 2.00 -> 1.52 ms (PERF.md). The
+//   kernel is bounded to 64 registers a thread (`__launch_bounds__(512,
+//   2)`; ptxas spills nothing), and the bits alone take about 107 KB of
+//   shared memory a block, of the SM's 228 KB. The launch takes the blocks
+//   a SM from the occupancy of the shared memory it asks for: a staged
+//   payload leaves room for one block, which measured faster than two
+//   reading the payload from L2 (2.57-2.67 against 4.14-4.35 ms for the
+//   sort_pairs pass). A warp-specialised ring in one block (8 warps ranking
+//   chunk i+1 while 8 write chunk i) took 1.95-2.08 ms on the bits alone;
 // - each block has the next chunk's words in flight while it ranks
 //   (`cp.async` into the other half of a double buffer in dynamic shared
 //   memory), and the next chunk's payload rows are asked of L2
@@ -67,8 +84,10 @@
 // peer then advances (and clears the mask): a digit has one writer a
 // round, and the rank follows the words' order (an atomicAdd rank would
 // not be stable). Exclusive scans of each digit's counts over the warps
-// and of the chunk's counts over the digits give every word its slot in
-// the chunk's sorted order, where its offset in the chunk is placed. Then
+// and of the chunk's counts over the digits give each warp its first slot
+// of each digit in the chunk's sorted order (the digit's start folded into
+// the warp's count, so a word's slot is one shared load and its rank),
+// where the word's offset in the chunk is placed. Then
 // thread j writes slot j of each stream to
 //     base[t0][d] + running[d] + (j - chunk_start[d]),
 // the word from the buffer, src from its offset, each payload row through
@@ -118,9 +137,9 @@ struct __align__(16) Smem {  // the staged rows follow it
     Word in[2][Chunk<Word>::WORDS];  // this chunk and the next, in flight
     Idx base[2][THRS_RS_BUCKETS];    // their segments' base rows
     unsigned match[THRS_RS_WARPS][THRS_RS_BUCKETS];  // a round's peers
+    // a digit's count in each warp; then the warp's first slot of it
     unsigned short warp_cnt[THRS_RS_WARPS][THRS_RS_BUCKETS];
     Idx dest[THRS_RS_BUCKETS];  // output of slot 0 per digit, minus start
-    int start[THRS_RS_BUCKETS];  // the chunk's exclusive digit scan
     int wsum[THRS_RS_WARPS];
     int ticket;  // the block's segment after the one it fetches
     unsigned short off[Chunk<Word>::WORDS];  // offsets, in sorted order
@@ -264,7 +283,7 @@ __device__ __forceinline__ void fetch(Smem<Word, Idx>& sm, int b,
 }
 
 template <typename Word, typename Idx>
-__global__ void __launch_bounds__(THRS_RS_THREADS, 1)
+__global__ void __launch_bounds__(THRS_RS_THREADS, 2)
 rank_scatter_kernel(const Word* __restrict__ bits,
                     const Idx* __restrict__ base, long long tile,
                     int tiles_per_row, int per_seg, int segs_per_row,
@@ -393,7 +412,11 @@ rank_scatter_kernel(const Word* __restrict__ bits,
         for (int w = 0; w < warp; ++w) start += sm.wsum[w];
         if (tid < nb) {
             if (k == 0) acc = sm.base[b][tid];
-            sm.start[tid] = start;
+#pragma unroll
+            for (int w = 0; w < THRS_RS_WARPS; ++w) {
+                sm.warp_cnt[w][tid] =
+                    (unsigned short)(sm.warp_cnt[w][tid] + start);
+            }
             sm.dest[tid] = acc - (Idx)start;
             if (cnt > 0) {
                 const long long lo = (long long)acc, hi = lo + cnt - 1;
@@ -417,7 +440,7 @@ rank_scatter_kernel(const Word* __restrict__ bits,
             if (e < m) {
                 const unsigned d = (unsigned)((in[e] >> shift) & mask);
                 const int rank = (rank2[r / 2] >> (16 * (r % 2))) & 0xFFFFu;
-                const int slot = sm.start[d] + sm.warp_cnt[warp][d] + rank;
+                const int slot = sm.warp_cnt[warp][d] + rank;
                 sm.off[slot] = (unsigned short)e;
             }
         }
@@ -473,36 +496,56 @@ static int smem_bytes(int staged) {
     return (int)sizeof(Smem<Word, Idx>) + staged * Chunk<Word>::WORDS;
 }
 
-// the SMs of each device (0 where they cannot be read); the kernel's
-// largest shared memory is allowed once per device and instantiation
+#define THRS_RS_MAX_DEVICES 64
+
+// staged payload bytes a word, at most (u64 words: 4096 a chunk)
+#define THRS_RS_MAX_STAGED (THRS_RS_STAGE_BYTES / 4096)
+
+// the blocks of the instantiation that one SM of device `dev` holds with
+// `staged` payload bytes a word in shared memory, as shared memory and
+// registers allow (0 where it cannot be read); the kernel's largest shared
+// memory, and the carveout that gives shared memory the most of the SM,
+// are set once per device
 template <typename Word, typename Idx>
-static int resident_blocks(int dev) {
-    static int cache[64] = {};
-    if (dev < 0 || dev >= 64) return 0;
-    if (cache[dev] == 0) {
-        int sms = 0;
-        if (cudaFuncSetAttribute(
-                rank_scatter_kernel<Word, Idx>,
-                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                (int)sizeof(Smem<Word, Idx>) + THRS_RS_STAGE_BYTES) !=
-                cudaSuccess ||
-            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                   dev) != cudaSuccess) {
+static int blocks_per_sm(int dev, int staged) {
+    static int cache[THRS_RS_MAX_DEVICES][THRS_RS_MAX_STAGED + 1];
+    static bool set[THRS_RS_MAX_DEVICES];
+    if (dev < 0 || dev >= THRS_RS_MAX_DEVICES || staged < 0 ||
+        staged > THRS_RS_MAX_STAGED) {
+        return 0;
+    }
+    if (cache[dev][staged] == 0) {
+        if (!set[dev]) {
+            if (cudaFuncSetAttribute(
+                    rank_scatter_kernel<Word, Idx>,
+                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                    (int)sizeof(Smem<Word, Idx>) + THRS_RS_STAGE_BYTES) !=
+                    cudaSuccess ||
+                cudaFuncSetAttribute(
+                    rank_scatter_kernel<Word, Idx>,
+                    cudaFuncAttributePreferredSharedMemoryCarveout,
+                    (int)cudaSharedmemCarveoutMaxShared) != cudaSuccess) {
+                return 0;
+            }
+            set[dev] = true;
+        }
+        int blocks = 0;
+        if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &blocks, rank_scatter_kernel<Word, Idx>, THRS_RS_THREADS,
+                smem_bytes<Word, Idx>(staged)) != cudaSuccess) {
             return 0;
         }
-        cache[dev] = sms;
+        cache[dev][staged] = blocks;
     }
-    return cache[dev];
+    return cache[dev][staged];
 }
 
-template <typename Word, typename Idx>
-static int launch(const void* bits, long long n, long long rows,
-                  long long tile, int shift, int width, const void* base,
-                  void* bits_out, void* src, Payloads pl, int* tickets,
-                  cudaStream_t stream) {
-    // the payloads' rows of a chunk are staged in shared memory, in order,
-    // while they fit THRS_RS_STAGE_BYTES; the others are read from L2
-    int staged = 0;  // bytes a word
+// the payloads' rows of a chunk are staged in shared memory, in order,
+// while they fit THRS_RS_STAGE_BYTES (pl.stage); the others are read from
+// L2. Returns the staged bytes a word.
+template <typename Word>
+static int stage(Payloads& pl) {
+    int staged = 0;
     for (int q = 0; q < pl.count; ++q) {
         const int rb = (int)pl.p[q].row_bytes;
         pl.stage[q] = -1;
@@ -511,25 +554,59 @@ static int launch(const void* bits, long long n, long long rows,
             staged += rb;
         }
     }
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess) return (int)cudaGetLastError();
-    const int resident = resident_blocks<Word, Idx>(dev);
-    if (resident == 0) {
+    return staged;
+}
+
+// A call's schedule: its blocks a SM and its grid, one block a segment (a
+// chunk's tiles of one row, or one longer tile) while the card holds them
+// all at once, with what the kernel is told of its segments
+struct Plan {
+    int per_sm, grid;
+    long long tiles_per_row, per_seg, segs_per_row, nseg;
+};
+
+// `p` for a call over `n` words in `rows` rows of tiles of `tile` with
+// `staged` payload bytes a word; returns a cudaError_t as int
+template <typename Word, typename Idx>
+static int plan(long long n, long long rows, long long tile, int staged,
+                Plan& p) {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess) {
+        const int err = (int)cudaGetLastError();
+        return err ? err : (int)cudaErrorInvalidDevice;
+    }
+    // as many blocks a SM as stay resident: two where no payload is staged
+    p.per_sm = blocks_per_sm<Word, Idx>(dev, staged);
+    if (p.per_sm == 0) {
         const int err = (int)cudaGetLastError();
         return err ? err : (int)cudaErrorInvalidConfiguration;
     }
+    const long long resident = (long long)p.per_sm * sms;
     // tiles a segment holds, segments a row, segments in all
-    const long long tiles_per_row = n / tile / rows;
-    const long long per_seg =
-        tile >= Chunk<Word>::WORDS ? 1 : Chunk<Word>::WORDS / tile;
-    const long long segs_per_row = (tiles_per_row + per_seg - 1) / per_seg;
-    const long long nseg = rows * segs_per_row;
-    const int grid = (int)(nseg < resident ? nseg : resident);
+    p.tiles_per_row = n / tile / rows;
+    p.per_seg = tile >= Chunk<Word>::WORDS ? 1 : Chunk<Word>::WORDS / tile;
+    p.segs_per_row = (p.tiles_per_row + p.per_seg - 1) / p.per_seg;
+    p.nseg = rows * p.segs_per_row;
+    p.grid = (int)(p.nseg < resident ? p.nseg : resident);
+    return (int)cudaSuccess;
+}
+
+template <typename Word, typename Idx>
+static int launch(const void* bits, long long n, long long rows,
+                  long long tile, int shift, int width, const void* base,
+                  void* bits_out, void* src, Payloads pl, int* tickets,
+                  cudaStream_t stream) {
+    const int staged = stage<Word>(pl);  // bytes a word
+    Plan p;
+    const int err = plan<Word, Idx>(n, rows, tile, staged, p);
+    if (err != (int)cudaSuccess) return err;
     rank_scatter_kernel<Word, Idx>
-        <<<grid, THRS_RS_THREADS, smem_bytes<Word, Idx>(staged), stream>>>(
+        <<<p.grid, THRS_RS_THREADS, smem_bytes<Word, Idx>(staged), stream>>>(
             static_cast<const Word*>(bits), static_cast<const Idx*>(base),
-            tile, (int)tiles_per_row, (int)per_seg, (int)segs_per_row,
-            (int)nseg, shift, width, static_cast<Word*>(bits_out),
+            tile, (int)p.tiles_per_row, (int)p.per_seg, (int)p.segs_per_row,
+            (int)p.nseg, shift, width, static_cast<Word*>(bits_out),
             static_cast<Idx*>(src), pl, tickets);
     return (int)cudaGetLastError();
 }
@@ -592,4 +669,49 @@ extern "C" int thrs_rank_scatter(const void* bits, int word_bytes,
                : launch<unsigned long long, long long>(
                      bits, n, rows, tile, shift, width, base, bits_out, src,
                      pl, tickets, s);
+}
+
+// The schedule of a call of thrs_rank_scatter on the current device over
+// `n` words of `word_bytes` (4 or 8) bytes in `rows` rows of whole tiles of
+// `tile`, with indices of `idx_bytes` (4 or 8) and the `num_payloads` (at
+// most 4) payloads whose rows are `row_bytes` bytes each (1, 2, 4, 8 or
+// 16): returns the blocks each SM runs at once (the payloads a block
+// stages set its shared memory) and writes the call's blocks to `grid`.
+// Returns 0 where an argument is not taken or the occupancy cannot be read.
+extern "C" int thrs_rank_scatter_per_sm(int word_bytes, int idx_bytes,
+                                        const long long* row_bytes,
+                                        int num_payloads, long long n,
+                                        long long rows, long long tile,
+                                        long long* grid) {
+    if ((word_bytes != 4 && word_bytes != 8) ||
+        (idx_bytes != 4 && idx_bytes != 8) || num_payloads < 0 ||
+        num_payloads > THRS_RS_MAX_PAYLOADS ||
+        (num_payloads > 0 && row_bytes == nullptr) || n < 0 || rows < 1 ||
+        tile < 1 || n % (rows * tile) != 0 || grid == nullptr) {
+        return 0;
+    }
+    Payloads pl = {};
+    pl.count = num_payloads;
+    for (int q = 0; q < num_payloads; ++q) {
+        const long long b = row_bytes[q];
+        if (b != 1 && b != 2 && b != 4 && b != 8 && b != 16) return 0;
+        pl.p[q].row_bytes = b;
+    }
+    Plan p;
+    int err;
+    if (word_bytes == 4) {
+        const int staged = stage<uint32_t>(pl);
+        err = idx_bytes == 4
+                  ? plan<uint32_t, int>(n, rows, tile, staged, p)
+                  : plan<uint32_t, long long>(n, rows, tile, staged, p);
+    } else {
+        const int staged = stage<unsigned long long>(pl);
+        err = idx_bytes == 4
+                  ? plan<unsigned long long, int>(n, rows, tile, staged, p)
+                  : plan<unsigned long long, long long>(n, rows, tile,
+                                                        staged, p);
+    }
+    if (err != (int)cudaSuccess) return 0;
+    *grid = p.grid;
+    return p.per_sm;
 }

@@ -192,6 +192,34 @@ def _rank_scatter_fn():
     return fn
 
 
+@functools.cache
+def _rank_scatter_per_sm_fn():
+    fn = cuda_lib.load("rank_scatter").thrs_rank_scatter_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _rank_scatter_per_sm(word_bytes: int, idx_bytes: int, row_bytes: tuple,
+                         n: int = 0, rows: int = 1,
+                         tile: int = 128) -> tuple[int, int]:
+    """The blocks each SM of the current device runs at once in a
+    rank-and-scatter launch with these word, index and payload row sizes,
+    and the blocks of that launch over ``n`` words in ``rows`` rows of
+    tiles of ``tile``, as the kernel's launch reckons them."""
+    grid = ctypes.c_longlong(0)
+    per_sm = _rank_scatter_per_sm_fn()(
+        word_bytes, idx_bytes, (ctypes.c_longlong * MAX_PAYLOADS)(*row_bytes),
+        len(row_bytes), n, rows, tile, ctypes.byref(grid))
+    if per_sm < 1:
+        raise RuntimeError("the rank-and-scatter kernel's occupancy could "
+                           "not be read")
+    return per_sm, grid.value
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous, at an address the kernel's 16-byte copies take."""
     t = t.contiguous()
@@ -222,8 +250,18 @@ def _launch_rank_scatter(bits, shift, width, base, tile, idx_dtype, payloads,
         return bits_out, src, moved
     # the kernel hands its blocks their work in order from this counter
     tickets = torch.zeros(1, dtype=torch.int32, device=bits.device)
-    with tracing.span("launch.rank_scatter", n=n, words=len(payloads)):
+    sched = {}  # the blocks a SM and the grid, read only while recording
+    if tracing.on():
+        row_bytes = tuple(payload_row_bytes(p, n) for p in payloads)
+        with torch.cuda.device(bits.device):
+            sched = dict(zip(("per_sm", "grid"), _rank_scatter_per_sm(
+                bits.dtype.itemsize, idx_dtype.itemsize, row_bytes, n,
+                base.shape[0], tile)))
+    with tracing.span("launch.rank_scatter", n=n, words=len(payloads),
+                      **sched):
         tracing.count("launches")
+        if sched.get("per_sm", 0) >= 2:
+            tracing.count("rank_scatter.overlapped")
         table = (_Payload * MAX_PAYLOADS)()
         for k, (p, q) in enumerate(zip(payloads, moved)):
             table[k] = _Payload(p.data_ptr(), q.data_ptr(),
