@@ -156,7 +156,8 @@ def test_counting_records_its_widths_and_bytes(case):
     sort = next(s for s in rec.spans if s.name == "counting.sort")
     assert sort.attrs == {"n": n, "words": int(val_dt is not None),
                           "key_bytes": key_bytes,
-                          "payload_bytes": payload_bytes, "passes": passes}
+                          "payload_bytes": payload_bytes, "idx_bytes": 4,
+                          "passes": passes}
     stages = [s for s in rec.spans if s.name.startswith("counting.")
               and s.name not in ("counting.sort", "counting.pad")]
     assert len(stages) == 4 * passes

@@ -88,10 +88,13 @@ def _stage(a: torch.Tensor, tile: int, fill: int) -> torch.Tensor:
     """Batched ``(B, n, ...)`` ``a`` as the first pass reads it: padded
     into a fresh copy (:func:`_pad_rows`) where ``n`` is not whole tiles,
     else where it lies, made contiguous and aligned only where it is not
-    (:func:`_aligned`). Each copy counts once in ``counting.pad_copies``."""
+    (:func:`_aligned`). Each copy counts once in ``counting.pad_copies``,
+    and its bytes in ``counting.pad_bytes``."""
     staged = _pad_rows(a, tile, fill) if a.shape[1] % tile else _aligned(a)
-    if staged is not a:
+    if staged is not a and tracing.on():
         tracing.count("counting.pad_copies")
+        tracing.count("counting.pad_bytes",
+                      staged.numel() * staged.element_size())
     return staged
 
 
@@ -376,7 +379,8 @@ def sort_arrays_counting(bits, arrays, start_bit: int, end_bit: int,
     While :mod:`..tracing` records, the sort is the span ``counting.sort``
     (attributes ``n``, ``words`` and :func:`_record_widths`'s) and its
     stages its children: ``counting.pad`` (:func:`_stage`, which counts the
-    arrays it copies in ``counting.pad_copies``), then in each pass
+    arrays it copies in ``counting.pad_copies`` and their bytes in
+    ``counting.pad_bytes``), then in each pass
     (attributes ``pass``, ``shift`` and ``width``) ``counting.histogram``,
     ``counting.scan``, ``counting.rank_scatter`` and ``counting.gathers``.
     """
@@ -389,10 +393,13 @@ def sort_arrays_counting(bits, arrays, start_bit: int, end_bit: int,
                               tile, with_bits, sort_span)
 
 
-def _record_widths(sort_span, plan, elements: int, bits, payloads) -> None:
+def _record_widths(sort_span, plan, elements: int, bits, payloads,
+                   idx_dt) -> None:
     """While recording: ``sort_span`` (``counting.sort``) gains ``key_bytes``
     (the bits' element size), ``payload_bytes`` (the carried ``payloads``'
-    summed row bytes) and ``passes`` (``len(plan)``); the call's counters
+    summed row bytes), ``idx_bytes`` (the element size of the offsets,
+    ``idx_dt``: 8 from 2**31 padded elements on) and ``passes``
+    (``len(plan)``); the call's counters
     ``counting.passes`` and ``counting.moved_bytes`` gain the passes and
     what their :func:`rank_scatter` reads and writes of bits and payloads,
     ``2 * elements * (key_bytes + payload_bytes)`` a pass over ``elements``
@@ -400,7 +407,7 @@ def _record_widths(sort_span, plan, elements: int, bits, payloads) -> None:
     key_bytes = bits.dtype.itemsize
     payload_bytes = sum(payload_row_bytes(p, elements) for p in payloads)
     sort_span.attrs.update(key_bytes=key_bytes, payload_bytes=payload_bytes,
-                           passes=len(plan))
+                           idx_bytes=idx_dt.itemsize, passes=len(plan))
     tracing.count("counting.passes", len(plan))
     tracing.count("counting.moved_bytes",
                   len(plan) * 2 * elements * (key_bytes + payload_bytes))
@@ -418,7 +425,7 @@ def _sort_counting(bits, arrays, start_bit, end_bit, radix_bits, tile,
     if n <= 1 or R == 0:
         # nothing moves; copies, since the bits can be a view of the keys
         if tracing.on():
-            _record_widths(sort_span, [], 0, bits, [])
+            _record_widths(sort_span, [], 0, bits, [], _index_dtype(0))
         out = [a.clone() for a in arrays + [bits] * with_bits]
     else:
         plan = common.digit_plan(start_bit, end_bit, radix_bits)
@@ -435,7 +442,7 @@ def _sort_counting(bits, arrays, start_bit, end_bit, radix_bits, tile,
         rest = [k for k in range(len(arrays_p)) if k not in keep]
         if tracing.on():
             _record_widths(sort_span, plan, R * npad, bits_p,
-                           [arrays_p[k] for k in keep])
+                           [arrays_p[k] for k in keep], idx_dt)
         for i, (shift, width) in enumerate(plan):
             # the pass's span attributes
             at = {"pass": i, "shift": shift, "width": width}

@@ -12,7 +12,8 @@ edge there, outside the span's own time.
 A span (:class:`Span`) holds its name, the call it belongs to, its id and
 its parent's, its start and end, and a few small attributes (``n``,
 ``words``, ``pass``, ``shift``, ``width``, ``route``, ``engine``;
-``counting.sort``'s ``key_bytes``, ``payload_bytes`` and ``passes``). A
+``counting.sort``'s ``key_bytes``, ``payload_bytes``, ``idx_bytes``, the
+element size of its offsets, 4 or 8, and ``passes``). A
 span entered ``as s`` while recording takes more attributes in ``s.attrs``
 until it ends, for what is known only inside it. A span opened while no span is
 open is the root of a new call: the public ``sort_keys``, ``sort_pairs``
@@ -22,7 +23,12 @@ the host side of one kernel launch (argument packing and the ctypes call,
 each also counted as ``launches``); every other span is an engine's
 (``bitonic.*``, ``counting.*``, ``argsort.*``, ``cuda_lib.build``).
 :func:`split` divides each call's time among the three, and
-:func:`paths_at` names what the host was inside at given times.
+:func:`paths_at` names what the host was inside at given times. The
+counting engine's counters a call: ``counting.pad_copies`` and
+``counting.pad_bytes`` (the arrays its staging copied, and the bytes it
+wrote into those copies; neither where rows are whole tiles, aligned and
+contiguous), ``counting.passes``, ``counting.moved_bytes`` and
+``rank_scatter.overlapped``.
 
 The clock is ``time.perf_counter_ns()``: ``perf_counter``'s, which the
 benchmark (``sortbench``) stamps each call with and on which it places the
